@@ -1,6 +1,7 @@
 """Streaming dense segmentation: chunking, id consistency, proto emission."""
 
 import numpy as np
+import pytest
 
 from video_segment_tpu import proto
 from video_segment_tpu.core import dense
@@ -133,6 +134,28 @@ def test_felz_per_frame_preseg_mode(rng):
         area = int(sum(sf.rxs - sf.lxs + 1))
         assert area == w * h
         assert list(sf.region_ids) == sorted(sf.region_ids)
+
+
+@pytest.mark.parametrize("backend", ["cpu", "gpu"])
+def test_preseg_is_felz_on_every_backend(monkeypatch, backend):
+    """One pre-segmentation choice, with no platform branch: the default
+    options take the felz pre-solve (and its tighter region table)
+    whatever backend JAX reports."""
+    import jax
+
+    from video_segment_tpu.core import dense
+    from video_segment_tpu.core.options import DenseSegmentationOptions
+
+    monkeypatch.setattr(jax, "default_backend", lambda: backend)
+    ds = dense.DenseSegmentation(DenseSegmentationOptions(), 64, 48)
+    assert ds._preseg_mode == "felz"
+    assert ds._params.table_divisor == 16
+    ds = dense.DenseSegmentation(
+        DenseSegmentationOptions(preseg_mode="flood"), 64, 48)
+    assert ds._preseg_mode == "flood"
+    with pytest.raises(ValueError):
+        dense.DenseSegmentation(DenseSegmentationOptions(preseg_mode="auto"),
+                                64, 48)
 
 
 def test_async_tail_matches_sync():

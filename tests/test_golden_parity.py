@@ -26,6 +26,9 @@ W, H, N = 136, 240, 8
 
 
 def _fixture_frames():
+    if not os.path.exists(VIDEO):
+        pytest.skip("the fixture was rendered from frames of test_video.MOV, "
+                    "which is not in this checkout")
     import cv2
 
     cap = cv2.VideoCapture(VIDEO)

@@ -195,21 +195,14 @@ def test_variance_trait_formula_oracle():
 
 def test_edge_table_matches_pixel_solver_on_real_texture():
     """The v2 edge-table path tracks the v1 pixel path on a realistic
-    textured crop (the order-inversion artifact class lives here; measured
-    boundary agreement 0.948 at floor 0.85)."""
-    import cv2
-
+    textured clip (textured patches, pan, a moving object and noise: the
+    order-inversion artifact class lives here; floor 0.85)."""
+    from video_segment_tpu.dataio.synthetic import synthetic_clip
     from video_segment_tpu.ops import tile_preseg
     from video_segment_tpu.segment_util.metrics import boundary_f_measure
 
-    cap = cv2.VideoCapture("/root/reference/video_example/test_video.MOV")
-    frames = []
-    for _ in range(4):
-        ok, f = cap.read()
-        assert ok
-        frames.append(cv2.resize(f, (64, 48), interpolation=cv2.INTER_AREA))
-    cap.release()
-    vol = jnp.asarray(np.stack(frames), jnp.float32) / 255.0
+    frames = synthetic_clip(64, 48, 4, seed=0)
+    vol = jnp.asarray(frames, jnp.float32) / 255.0
 
     p1 = ov.OversegParams(min_region_size=12, edge_table=False,
                           compact_after_levels=1)

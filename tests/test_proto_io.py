@@ -65,7 +65,7 @@ def test_encode_frame_full_parse(rng):
         ids, counts, ys, lxs, rxs,
         frame_width=640, frame_height=480, chunk_size=20,
         overlap_start=18, chunk_id=2, hierarchy_frame_idx=40,
-        connectedness=proto.N4_CONNECT, hierarchy=[level])
+        connectedness=proto.N4_CONNECT, hierarchy=[level.SerializeToString()])
     m = proto.SegmentationDesc()
     m.ParseFromString(payload)
     assert m.frame_width == 640 and m.frame_height == 480

@@ -1,4 +1,4 @@
-"""Tile-felz kernel vs NumPy mirror, and the cell-stats init fast path."""
+"""Tile-felz pre-solve vs NumPy mirror, and the cell-stats init fast path."""
 
 import numpy as np
 import jax
@@ -9,24 +9,27 @@ from video_segment_tpu.ops import tile_felz
 from video_segment_tpu.core import oversegmentation as ov
 
 
+def _textured(shape, seed):
+    import scipy.ndimage as ndi
+    base = np.random.default_rng(seed).random(shape + (3,))
+    return ndi.gaussian_filter(base, (0, 2, 2, 0)).astype(np.float32)
+
+
 @pytest.fixture(scope="module")
-def textured_vol(rng_module=None):
-    rng = np.random.default_rng(7)
-    base = rng.random((2, 24, 300, 3)).astype(np.float32)
-    try:
-        import scipy.ndimage as ndi
-        base = ndi.gaussian_filter(base, (0, 2, 2, 0)).astype(np.float32)
-    except ImportError:
-        pass
-    return base
+def textured_vol():
+    return _textured((2, 24, 300), 7)
 
 
-def test_kernel_matches_mirror(textured_vol):
-    """Interpret-mode kernel == sequential NumPy mirror: exact labels,
-    cell-positioned stats to f32 reduction tolerance, finalize levels in
-    near-total agreement (fins trigger exactly at the merge threshold, so
-    the mirror's float64 means legitimately flip borderline tests)."""
-    vol = textured_vol
+@pytest.mark.parametrize("shape", [(2, 24, 300), (1, 8, 256), (1, 16, 128),
+                                   (1, 40, 200), (1, 272, 130)])
+def test_kernel_matches_mirror(shape):
+    """Plain-JAX pre-solve == sequential NumPy mirror at heights that are
+    one, two, five and 34 tiles and widths that are or are not multiples
+    of 128: exact labels, cell-positioned stats to f32 reduction
+    tolerance, finalize levels in near-total agreement (fins trigger
+    exactly at the merge threshold, so the mirror's float64 means
+    legitimately flip borderline tests)."""
+    vol = _textured(shape, 7)
     lab_k, fin_k, st_k = tile_felz.tile_felzenszwalb(
         jnp.asarray(vol), schedule=(4, 32, 96), fin_margin=1.5)
     lab_m, fin_m, st_m = tile_felz.tile_felz_reference(
@@ -42,6 +45,30 @@ def test_kernel_matches_mirror(textured_vol):
     # Stats cover every pixel exactly once.
     t, h, w, _ = vol.shape
     assert size_k.sum() == t * h * w
+
+
+def _dot_precisions(jaxpr):
+    """Precision of every dot_general in a jaxpr and its sub-jaxprs."""
+    for eqn in jaxpr.eqns:
+        if eqn.primitive.name == "dot_general":
+            yield eqn.params["precision"]
+        for v in eqn.params.values():
+            for j in v if isinstance(v, (tuple, list)) else (v,):
+                inner = getattr(j, "jaxpr", j)      # ClosedJaxpr -> Jaxpr
+                if hasattr(inner, "eqns"):
+                    yield from _dot_precisions(inner)
+
+
+def test_contractions_ask_for_highest_precision():
+    """Every dot_general of the pre-solve runs at Precision.HIGHEST (a
+    float32 dot may otherwise run in TF32 on the GPU)."""
+    vol = jnp.zeros((1, 8, 128, 3), jnp.float32)
+    jaxpr = jax.make_jaxpr(lambda v: tile_felz.tile_felzenszwalb(
+        v, schedule=(4, 32)))(vol)
+    dots = list(_dot_precisions(jaxpr.jaxpr))
+    assert dots, "no contraction found"
+    highest = jax.lax.Precision.HIGHEST
+    assert all(p == (highest, highest) for p in dots), dots
 
 
 def test_kernel_fin_levels_exact_on_margined_fixture():

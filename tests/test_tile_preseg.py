@@ -1,56 +1,37 @@
-"""Pallas tile pre-segmentation vs NumPy flood oracle (interpret mode)."""
+"""Tile pre-segmentation flood vs the NumPy connected-components oracle."""
 
 import numpy as np
 import jax.numpy as jnp
+import pytest
 
 from video_segment_tpu.ops import tile_preseg
-
-
-def _oracle(vol, threshold):
-    """Per-tile N4 CC under the distance threshold (union-find)."""
-    t, h, w, _ = vol.shape
-    out = np.arange(t * h * w).reshape(t, h, w)
-
-    def find(parent, i):
-        while parent[i] != i:
-            parent[i] = parent[parent[i]]
-            i = parent[i]
-        return i
-
-    for f in range(t):
-        for ty in range(0, h, tile_preseg.TILE_H):
-            for tx in range(0, w, tile_preseg.TILE_W):
-                ys = slice(ty, min(ty + tile_preseg.TILE_H, h))
-                xs = slice(tx, min(tx + tile_preseg.TILE_W, w))
-                crop = vol[f, ys, xs]
-                hh, ww, _ = crop.shape
-                parent = list(range(hh * ww))
-                for y in range(hh):
-                    for x in range(ww):
-                        for dy, dx in ((1, 0), (0, 1)):
-                            if y + dy < hh and x + dx < ww:
-                                d = np.sqrt(((crop[y, x]
-                                              - crop[y + dy, x + dx]) ** 2
-                                             ).sum() / 3.0)
-                                if d <= threshold:
-                                    a = find(parent, y * ww + x)
-                                    b = find(parent, (y + dy) * ww + x + dx)
-                                    parent[max(a, b)] = min(a, b)
-                for y in range(hh):
-                    for x in range(ww):
-                        r = find(parent, y * ww + x)
-                        out[f, ty + y, tx + x] = (f * h * w
-                                                  + (ty + r // ww) * w
-                                                  + tx + r % ww)
-    return out
 
 
 def test_tile_preseg_matches_oracle(rng):
     vol = (rng.random((2, 16, 140, 3)) < 0.5).astype(np.float32) * 0.6
     got = np.asarray(tile_preseg.tile_presegment(jnp.asarray(vol), 0.01,
                                                  iters=64))
-    want = _oracle(vol, 0.01)
+    want = tile_preseg.tile_preseg_reference(vol, 0.01)
     np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("shape,metric", [((1, 40, 300), "l2"),
+                                          ((3, 8, 128), "l1")])
+def test_tile_preseg_matches_oracle_shapes(shape, metric):
+    """Smooth texture with flat patches at a height and width that are
+    not multiples of the tile; the flood runs to convergence
+    (TILE_H * TILE_W iterations bound any in-tile path)."""
+    rng = np.random.default_rng(3)
+    t, h, w = shape
+    patches = rng.random((t, h // 4 + 1, w // 4 + 1, 3))
+    vol = patches.repeat(4, axis=1).repeat(4, axis=2)[:, :h, :w]
+    vol = (vol + rng.random(shape + (3,)) * 0.004).astype(np.float32)
+    got = np.asarray(tile_preseg.tile_presegment(
+        jnp.asarray(vol), 0.01, metric,
+        iters=tile_preseg.TILE_H * tile_preseg.TILE_W))
+    want = tile_preseg.tile_preseg_reference(vol, 0.01, metric)
+    np.testing.assert_array_equal(got, want)
+    assert len(np.unique(got)) < got.size // 4    # the flood did merge
 
 
 def test_tile_preseg_threshold_zero_noise(rng):

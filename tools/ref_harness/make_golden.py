@@ -1,12 +1,12 @@
 #!/usr/bin/env python
-"""Generate golden reference output and score the TPU rebuild against it.
+"""Generate golden reference output and score the JAX rebuild against it.
 
 Steps:
   1. Decode frames of the input video with cv2 into /tmp PNGs (the harness
      driver has no FFmpeg).
   2. Run the reference pipeline (golden_driver, built by build.sh from the
      upstream sources) -> golden .pb.
-  3. Run the TPU rebuild on the same frames -> our .pb.
+  3. Run the JAX rebuild on the same frames -> our .pb.
   4. Probe BOTH files with the reference's own reader (pb_inspect):
      wire-compat + hierarchy verification.
   5. Score per-frame boundary F-measure between the two segmentations at

@@ -1,6 +1,6 @@
-"""TPU-native hierarchical graph-based video segmentation framework.
+"""Hierarchical graph-based video segmentation framework.
 
-A from-scratch JAX/XLA/Pallas implementation of the capabilities of the
+A from-scratch JAX/XLA implementation of the capabilities of the
 Grundmann et al. CVPR'10 streaming hierarchical video segmentation system:
 
 - ``ops``: device kernels — color conversion, smoothing, spatio-temporal edge
@@ -8,7 +8,7 @@ Grundmann et al. CVPR'10 streaming hierarchical video segmentation system:
 - ``core``: the segmentation engine — over-segmentation solver, streaming
   dense driver, hierarchical agglomeration, chunk-set streaming.
 - ``dataio``: wire-compatible protobuf emission and the chunked ``.pb``
-  container, video decode, flow caching.
+  container, video decode, flow caching, synthetic clips.
 - ``segment_util``: host-side result utilities (hierarchies, rendering,
   boundaries, vectorization).
 - ``parallel``: device-mesh sharding of the compute path.
@@ -19,22 +19,19 @@ __version__ = "0.1.0"
 
 import os as _os
 
+# Persistent compilation cache: solver programs are large and their XLA
+# compiles are expensive, so cache them across processes.  Where
+# JAX_COMPILATION_CACHE_DIR is set, JAX reads it itself and the package
+# sets nothing; otherwise the cache lives at a fixed path in the checkout.
+CACHE_DIR = _os.path.abspath(_os.path.join(
+    _os.path.dirname(_os.path.abspath(__file__)), "..", ".jax_cache"))
+
 
 def _configure_jax():
-    """Persistent compilation cache: solver programs are large and their
-    XLA compiles are expensive; cache them across processes."""
-    cache = _os.environ.get(
-        "VST_JAX_CACHE",
-        _os.path.join(_os.path.dirname(_os.path.abspath(__file__)),
-                      "..", ".jax_cache"))
-    if cache and cache != "0":
-        try:
-            import jax
-            jax.config.update("jax_compilation_cache_dir",
-                              _os.path.abspath(cache))
-            jax.config.update("jax_persistent_cache_min_compile_time_secs", 1)
-        except Exception:
-            pass
+    if _os.environ.get("JAX_COMPILATION_CACHE_DIR"):
+        return
+    import jax
+    jax.config.update("jax_compilation_cache_dir", CACHE_DIR)
 
 
 _configure_jax()

@@ -16,9 +16,9 @@ Batching discipline (advisor round-3 items):
   buffered lengths, constrained vs free chunks) fall back to per-clip
   dispatch for that step — correctness is unconditional, fusion is the
   fast path.
-- The batched program's live solve footprint is clips * T * H * W voxels
-  (TPU worker crash near ~19M, CLAUDE.md); the constructor rejects
-  configurations whose batch exceeds `max_solve_voxels`.  High
+- The batched program's live solve footprint is clips * T * H * W voxels;
+  the constructor rejects configurations whose batch exceeds
+  `max_solve_voxels` (DenseSegmentationOptions).  High
   resolutions (720p+) use banded solves and must batch via
   --concurrent interleaving or the mesh "data" axis instead.
 """

@@ -1,4 +1,4 @@
-"""Dense TV-L1 optical flow on TPU (jnp) + flow caching.
+"""Dense TV-L1 optical flow on the device (jnp) + flow caching.
 
 Replaces the reference's OpenCV DualTVL1 engine
 (video_framework/flow_reader.cpp:180-330; settings warps=2, iterations=10
@@ -247,8 +247,8 @@ class _LazyFlowBatch:
     """Shared host cache for one micro-batch of device flow fields.
 
     The first host consumer triggers ONE float16 download of the whole
-    (B,H,W,2) batch (half the bytes of f32 on the ~25-55 MB/s remote link,
-    one transfer instead of B); every FlowField of the batch then serves
+    (B,H,W,2) batch (half the bytes of f32, one transfer instead of B);
+    every FlowField of the batch then serves
     its slice from the cache.  Flow magnitudes are a few pixels, so f16
     (~3 decimal digits) is far inside the tolerance of every host
     consumer: centroid advection (threshold 4% of the frame diagonal,
@@ -275,9 +275,9 @@ def _to_f16(x):
 class FlowField:
     """Handle for one frame's (H,W,2) flow field.
 
-    Device-resident when computed on the TPU: the dense solver reads
-    `.device()` and skips the download + re-upload round-trip the remote
-    link would otherwise pay (~8 bytes/px each way).  Host consumers go
+    Device-resident when computed on the device: the dense solver reads
+    `.device()` and skips a download + re-upload round-trip (~8 bytes/px
+    each way).  Host consumers go
     through `.numpy_f16()` (batched half-width download, cached) or
     `np.asarray(field)` (exact float32 — used by the `.flow` cache
     writer).  Mirrors the reference's FlowFrame payload

@@ -23,22 +23,18 @@ class DenseSegmentationOptions:
     enforce_spatial_connectedness: bool = True
     color_distance: str = "l2"               # l1 | l2
     compute_vectorization: bool = False
-    # Pallas VMEM tile pre-segmentation before the global solver.
-    # Experimental groundwork for the tiled solver: measured neutral-to-
-    # negative today (the global solver's round cost is O(pixels) regardless
-    # of the initial region count), so default off.
-    # VMEM tile pre-segmentation before the solver.  The edge-table solver
+    # Tile pre-segmentation before the solver.  The edge-table solver
     # REQUIRES it (its region table is sized well below the pixel count);
     # dense.py forces it on when OversegParams.edge_table is set.
     tile_presegment: bool = True
     # Preseg flavor: "felz" = full tile-local Felzenszwalb (ops/tile_felz,
-    # ~50x pixel collapse, TPU only — interpret mode is too slow for
-    # production shapes), "flood" = force-level tile flooding
-    # (ops/tile_preseg), "auto" = felz on TPU else flood.
-    preseg_mode: str = "auto"
-    # Upper bound on voxels per solve; at large resolutions the chunk size
-    # shrinks to stay under it (the attached TPU worker crashes near 19M
-    # voxels; smaller chunks trade seam frequency for functioning 720p+).
+    # the path the quality defaults were tuned on), "flood" = force-level
+    # tile flooding (ops/tile_preseg).
+    preseg_mode: str = "felz"
+    # Upper bound on voxels per solve's pixel phases: above it, the
+    # edge-table solve splits into row bands (the v1 solver shrinks the
+    # chunk instead).  A default carried over from the first target
+    # device, to be re-derived from the GPU's memory (ROADMAP S5).
     max_solve_voxels: int = 8_000_000
     # Explicit solver row-band count (0 = derive from max_solve_voxels).
     # Used to pin a band decomposition, e.g. to compare a mesh-sharded run

@@ -1,4 +1,4 @@
-"""TPU over-segmentation solver: bucketized parallel region merging.
+"""Over-segmentation solver: bucketized parallel region merging.
 
 Replaces the reference's sequential Felzenszwalb-style bucket-sweep
 union-find (segmentation_graph.h:339-463, dense_segmentation_graph.h) with a
@@ -119,10 +119,9 @@ class OversegParams(NamedTuple):
     # (tile preseg at `preseg_threshold`) so live regions fit the table.
     edge_table: bool = True
     edge_topk: int = 12
-    # Region-table size divisor for the edge-table path (r2 sweep: n//8
-    # tables run 4x faster than n//2 with identical output on the bench
-    # clip; overflow falls into the inert sink, so preseg must keep live
-    # regions below n_pix/table_divisor).
+    # Region-table size divisor for the edge-table path (every table round
+    # costs O(table); overflow falls into the inert sink, so preseg must
+    # keep live regions below n_pix/table_divisor).
     table_divisor: int = 8
     # Distance below which tile preseg floods pixels together when feeding
     # the edge-table solver (bucket ~20 of 2048: merges the reference would
@@ -138,10 +137,11 @@ class OversegParams(NamedTuple):
     table_slots: int = 0
     # Spatial row-band decomposition of the pixel phases (init, edge
     # extraction).  bands>1 splits H into equal bands processed one at a
-    # time (lax.map), bounding peak pixel-phase memory to one band — this
-    # is what restores 20-frame chunks at 720p/1080p
-    # (dense_segmentation.h:64-75 geometry) where a monolithic solve
-    # crashes the TPU worker.  Band boundaries must fall on multiples of 8
+    # time (lax.map), bounding peak pixel-phase memory to one band, so
+    # 720p/1080p keep the reference's 20-frame chunks
+    # (dense_segmentation.h:64-75 geometry) under the device's memory
+    # bound (DenseSegmentationOptions.max_solve_voxels).  Band boundaries
+    # must fall on multiples of 8
     # rows (the tile preseg's subtile height) so preseg regions never span
     # bands.  Cross-band adjacency is restored by a boundary-row edge pass
     # (spatial + undisplaced-temporal crossing directions); flow-displaced
@@ -229,11 +229,10 @@ class OversegParams(NamedTuple):
     # matching the reference's re-evaluate-after-every-merge order
     # (segmentation_graph.h:339-463) by leaving ~700k tiny fragments
     # per 480p chunk for the global solver's whole-region statistics.
-    # That granularity costs ~4.5x in the global solve (every coarser
-    # point loses the F gain: sweeps C/D/E, BENCH_NOTES round 5), which
-    # puts all bench configs below the CPU baseline, so it ships as an
-    # opt-in (--solver_param preseg_pair_merge=1) until the supertile
-    # phase-1.5 solve makes it affordable (ROADMAP).
+    # That granularity multiplies the global solve's table work (every
+    # coarser point lost the F gain in the round-5 sweeps), so it ships as
+    # an opt-in (--solver_param preseg_pair_merge=1) until its cost is
+    # measured on the GPU (ROADMAP).
     preseg_pair_merge: bool = False
     # Depth-1 hooking in global merge rounds: cancel hooks whose target
     # also hooks, so every merge is tested against current statistics (no
@@ -258,35 +257,10 @@ class OversegParams(NamedTuple):
     # wait: they are re-tested at level `st_levels` with the merged
     # statistics, like any edge the schedule has not yet reached.  The
     # point is cost, not semantics: with fine presegs (preseg_pair_merge),
-    # the early levels own ~90% of live-region collapse, and a
-    # supertile-local round can run VMEM-resident (see ops/tile_table) at
-    # a fraction of the O(cap * K) gather cost of the global rounds.
+    # the early levels own most of the live-region collapse.
     st_levels: int = 0
     st_h: int = 64
     st_w: int = 256
-    # Run the gated levels' merge rounds in the Pallas supertile-table
-    # kernel instead of masked global table rounds (requires st_levels>0).
-    # None = auto (kernel on TPU, masked rounds elsewhere).  The kernel
-    # requires the color_mean descriptor without gradient trait or
-    # two_stage; other configurations fall back to masked rounds.
-    st_kernel: bool | None = None
-    # Blocked slots per supertile for the kernel (multiple of 128).  A
-    # supertile's seeds beyond the cap stay unmerged through the gated
-    # levels (they join at level st_levels), like cross-supertile pairs.
-    st_slots: int = 4096
-    # Extract the region adjacency with the per-tile Pallas kernel
-    # (ops/tile_extract) instead of O(pixels) packed segment-min scatters
-    # (the solve's single largest device phase, BENCH_NOTES round 3):
-    # preseg regions are tile-local, so per-(region, direction) minima
-    # reduce in VMEM and the table gathers from root cells.  Constraint
-    # head planes (labels not tile-local) keep the scatter path for their
-    # own pixels; flow-displaced keys work (they are computed outside the
-    # kernel).  Produces the identical forward table (equality-tested;
-    # TPU-validated round 5: 7/7 equality tests on v5e incl. full solve,
-    # plus 40-frame e2e id-image equality vs the scatter path).  None =
-    # auto: tile on TPU, scatter elsewhere (the Pallas kernel only runs
-    # in interpret mode off-TPU, ~3x slower end-to-end on CPU).
-    extract_tile: bool | None = None
 
 
 class SolverState(NamedTuple):
@@ -306,18 +280,18 @@ class SolverState(NamedTuple):
 
 class OversegResult(NamedTuple):
     """Solver output.  Region attributes are SLOT-spaced (table slots, a
-    few 100k at most) rather than scattered over pixel space — full-pixel
-    attribute arrays cost ~100MB/chunk over the remote-device link at
-    1080p.  `orig` maps live slots to the original root voxel ids used in
-    `label`; look attributes up via `region_attrs`."""
+    few 100k at most) rather than scattered over pixel space, so the host
+    fetches O(regions) values, not O(pixels).  `orig` maps live slots to
+    the original root voxel ids used in `label`; look attributes up via
+    `region_attrs`."""
     label: jnp.ndarray   # (T,H,W) int32 original root voxel id per voxel
     constr: jnp.ndarray  # (S,) int32 constraint id per live slot (-1 free)
     size: jnp.ndarray    # (S,) f32 region size per live slot (0 dead)
     orig: jnp.ndarray    # (S,) int32 original root voxel id (-1 dead)
     # Compressed label transport (edge-table solver only): label ==
     # lut[label16] wherever nsink == 0.  The uint16 volume is half the
-    # bytes of `label` on the ~25-55 MB/s host link; hosts fetch it and
-    # reconstruct, falling back to `label` when sink pixels exist.
+    # bytes of `label` to download; hosts fetch it and reconstruct,
+    # falling back to `label` when sink pixels exist.
     label16: jnp.ndarray | None = None  # (T,H,W) uint16 final slot per voxel
     lut: jnp.ndarray | None = None      # (cap,) int32 slot -> root voxel id
     nsink: jnp.ndarray | None = None    # () int32 count of sink pixels
@@ -415,8 +389,8 @@ def _fold_dirs_raw(feats, label3, flow, metric, spatial_dirs,
 
     Shift-expressible directions (spatial N8, undisplaced temporal) run in a
     lax.scan over traced (dt,dy,dx) — ONE compiled body regardless of the
-    direction count, which keeps the program small enough for the remote
-    compiler at large shapes.  Flow-displaced directions share a single
+    direction count, which keeps the compiled program small at large
+    shapes.  Flow-displaced directions share a single
     stacked gather and a second scan.  `feats` may carry any channel count;
     channels [0:3] must be the color volume (bucket source)."""
     t, h, w, nf = feats.shape
@@ -750,9 +724,7 @@ def _level_end(state: SolverState, vol, flow, theta, n, p: OversegParams,
 # Edge-table solver (v2): collapse pixels early with a gated label flood,
 # then extract the region adjacency ONCE and run every remaining phase on
 # O(regions)-sized tables.  Replaces per-round O(pixels) stencil folds with
-# per-round O(regions * K) fused gathers + segment ops (measured: fused
-# gather+segment programs run ~20x faster than the pixel folds on this
-# backend; see BENCH_NOTES round 2).
+# per-round O(regions * K) fused gathers + segment ops.
 
 _PARTNER_BITS = 20
 _PARTNER_MASK = (1 << _PARTNER_BITS) - 1
@@ -777,8 +749,7 @@ def _pack_spec(nseg: int):
 
 
 def _extract_edges(memb3, vol, flow, nseg, sink, p, global_base: int = 0,
-                   pack_domain: int | None = None, init_label=None,
-                   orig_slot=None, head_planes: int = 0):
+                   pack_domain: int | None = None):
     """One-time region-adjacency extraction from pixel space.
 
     For every stencil direction, aggregates the minimum-bucket pixel edge
@@ -790,8 +761,7 @@ def _extract_edges(memb3, vol, flow, nseg, sink, p, global_base: int = 0,
     [n_dirs, 2*n_dirs) the reverse view.
 
     Only the forward view reduces over pixel space (one O(N) scatter per
-    direction — these scatters were the solve's single largest device
-    cost).  The reverse view derives in TABLE space by re-scattering each
+    direction).  The reverse view derives in TABLE space by re-scattering each
     forward column onto its partner slot: O(regions) per direction, ~30x
     fewer scatter elements.  The derived view retains an edge only when it
     won some region's forward per-direction min — the table is already a
@@ -802,16 +772,6 @@ def _extract_edges(memb3, vol, flow, nseg, sink, p, global_base: int = 0,
 
     `global_base` offsets packed partner ids (banded solves extract with
     band-local segment keys but globally addressed partners).
-
-    With `p.extract_tile` and `init_label`/`orig_slot` provided, the
-    forward reduction runs as a per-tile Pallas VMEM reduction instead of
-    per-direction O(pixels) scatters (ops/tile_extract): after the tile
-    preseg every non-head region is local to one (8,128) tile, so its
-    per-direction minima reduce in VMEM and the table GATHERS from root
-    cells.  The first `head_planes` frames hold host-built constraint
-    groups whose labels are NOT tile-local; their pixels keep the scatter
-    path (an nc/t fraction of the volume).  Both paths produce identical
-    forward tables (equality-tested).
     """
     t, h, w, _ = vol.shape
     bits, bshift = _pack_spec(pack_domain if pack_domain is not None
@@ -820,74 +780,23 @@ def _extract_edges(memb3, vol, flow, nseg, sink, p, global_base: int = 0,
     memb_flat = memb3.reshape(-1)
     n_dirs = len(SPATIAL_FWD) + (len(TEMPORAL_DIRS) if t > 1 else 0)
     d_cols = 2 * n_dirs
-    use_tile = (p.extract_tile if p.extract_tile is not None
-                else jax.default_backend() == "tpu")
-    tile_path = (use_tile and init_label is not None
-                 and orig_slot is not None)
 
-    if tile_path:
-        head_n = head_planes * h * w
+    def fold(carry, d: _RawDir):
+        tb, k = carry
+        ok = (d.valid & (d.nb_label != memb3)
+              & (memb3 != sink) & (d.nb_label != sink))
+        bkt = jnp.minimum(d.bucket, NUM_BUCKETS - 2) >> bshift
+        pk_a = jnp.where(ok, (bkt << bits) | (d.nb_label + global_base),
+                         _I32MAX)
+        e_a = jax.ops.segment_min(pk_a.reshape(-1), memb_flat,
+                                  num_segments=nseg)
+        tb = jax.lax.dynamic_update_slice(tb, e_a[None], (k, 0))
+        return tb, k + 1
 
-        def fold(carry, d: _RawDir):
-            planes, hd, k = carry
-            ok = (d.valid & (d.nb_label != memb3)
-                  & (memb3 != sink) & (d.nb_label != sink))
-            bkt = jnp.minimum(d.bucket, NUM_BUCKETS - 2) >> bshift
-            pk_a = jnp.where(ok, (bkt << bits) | (d.nb_label + global_base),
-                             _I32MAX)
-            planes = jax.lax.dynamic_update_slice(
-                planes, pk_a[None], (k, 0, 0, 0))
-            if head_n:
-                e_h = jax.ops.segment_min(pk_a.reshape(-1)[:head_n],
-                                          memb_flat[:head_n],
-                                          num_segments=nseg)
-                hd = jax.lax.dynamic_update_slice(hd, e_h[None], (k, 0))
-            return planes, hd, k + 1
-
-        planes = jnp.full((n_dirs, t, h, w), _I32MAX, jnp.int32)
-        head_tab = jnp.full((n_dirs, nseg), _I32MAX, jnp.int32)
-        planes, head_tab, _ = _fold_dirs_raw(
-            vol, memb3, flow, p.metric, SPATIAL_FWD, False, fold,
-            (planes, head_tab, jnp.int32(0)),
-            pair_dist=_pair_dist_fn(p, vol.shape[-1]))
-        if head_planes:
-            # Head pixels' labels are not tile-local: their reduction is
-            # the scatter above, never the tile pass.
-            planes = planes.at[:, :head_planes].set(_I32MAX)
-
-        from video_segment_tpu.ops import tile_extract
-        from video_segment_tpu.ops.tile_felz import TILE_H, TILE_W
-        yx = init_label % (h * w)
-        labr = ((yx // w) % TILE_H).reshape(t, h, w).astype(jnp.int32)
-        labc = (yx % w % TILE_W).reshape(t, h, w).astype(jnp.int32)
-        red = tile_extract.tile_reduce_min(labr, labc, planes)
-        gathered = red.reshape(n_dirs, -1)[:, orig_slot]
-        # A slot's gather is meaningful only if orig_slot really roots it
-        # (overflow/sink slots carry orig_slot 0).
-        slots_i = jnp.arange(nseg, dtype=jnp.int32)
-        real = ((memb_flat[orig_slot] == slots_i)
-                & (slots_i != sink))[None]
-        fwd_t = jnp.where(real, gathered, _I32MAX)
-        tab = jnp.full((d_cols, nseg), _I32MAX, jnp.int32)
-        tab = jax.lax.dynamic_update_slice(
-            tab, jnp.minimum(fwd_t, head_tab), (0, 0))
-    else:
-        def fold(carry, d: _RawDir):
-            tb, k = carry
-            ok = (d.valid & (d.nb_label != memb3)
-                  & (memb3 != sink) & (d.nb_label != sink))
-            bkt = jnp.minimum(d.bucket, NUM_BUCKETS - 2) >> bshift
-            pk_a = jnp.where(ok, (bkt << bits) | (d.nb_label + global_base),
-                             _I32MAX)
-            e_a = jax.ops.segment_min(pk_a.reshape(-1), memb_flat,
-                                      num_segments=nseg)
-            tb = jax.lax.dynamic_update_slice(tb, e_a[None], (k, 0))
-            return tb, k + 1
-
-        tab = jnp.full((d_cols, nseg), _I32MAX, jnp.int32)
-        tab, _ = _fold_dirs_raw(vol, memb3, flow, p.metric, SPATIAL_FWD,
-                                False, fold, (tab, jnp.int32(0)),
-                                pair_dist=_pair_dist_fn(p, vol.shape[-1]))
+    tab = jnp.full((d_cols, nseg), _I32MAX, jnp.int32)
+    tab, _ = _fold_dirs_raw(vol, memb3, flow, p.metric, SPATIAL_FWD,
+                            False, fold, (tab, jnp.int32(0)),
+                            pair_dist=_pair_dist_fn(p, vol.shape[-1]))
 
     # Reverse view from the forward table: column k's entry at slot a,
     # packed (bucket, partner b), re-scatters as (bucket, a) onto slot b.
@@ -939,8 +848,9 @@ def _table_round(ts: SolverState, ptn, pbk, theta, up, mode, nseg, sink,
     Admissibility matches `_round` (segmentation_graph.h:383-439).
 
     `sup` (per-slot supertile id) with `st_on` (traced bool) restricts
-    regular merges to same-supertile pairs (OversegParams.st_levels);
-    constrained pairs are exempt.
+    merges to FREE same-supertile pairs (OversegParams.st_levels):
+    constrained pairs wait for level st_levels, like cross-supertile
+    edges.
     """
     root = ts.label
     k = ptn.shape[1]
@@ -987,9 +897,7 @@ def _table_round(ts: SolverState, ptn, pbk, theta, up, mode, nseg, sink,
     adm_merge = (pbk <= theta) & (regular | constr_same)
     if sup is not None:
         # Gated levels admit only FREE same-supertile pairs: constrained
-        # pairs wait for level st_levels like cross-supertile edges (the
-        # supertile kernel carries no constraint state, so the masked
-        # rounds must defer exactly the same pair set).
+        # pairs wait for level st_levels like cross-supertile edges.
         st_ok = ((sup[own][:, None] == sup[a2])
                  & (own_constr[:, None] < 0) & (nb_constr < 0))
         adm_merge = adm_merge & (st_ok | ~st_on)
@@ -1307,8 +1215,8 @@ def _init_table(vol, init_label, constr_init, frozen_init, fin_init,
 
     With `cell_stats` (size, c0, c1, c2 — per-region sums CELL-POSITIONED
     at root voxels, as the felz pre-solve exports), per-slot stats GATHER
-    from root cells instead of segment-summing all pixels: the 7-column
-    pixel scatter dominated init on the remote backend.  The first
+    from root cells instead of segment-summing all pixels (an O(regions)
+    gather in place of a 7-column O(pixels) scatter).  The first
     `head_planes` planes (host-built constraint groups whose cells carry
     no stats) still reduce from their pixels — a nc/t fraction of the
     volume.
@@ -1426,8 +1334,7 @@ def _solve_edge_table(vol, fl, init_label, constr_init, frozen_init,
                                           cell_stats, head_planes)
     with jax.named_scope("overseg_extract_edges"):
         tab = _extract_edges(memb.reshape(t, h, w), vol, fl, nseg, sink,
-                             params, init_label=init_label,
-                             orig_slot=orig_slot, head_planes=head_planes)
+                             params)
     return _finish_table_solve(ts, tab, memb, orig_slot, init_label,
                                (t, h, w), params, thetas, level_rounds,
                                has_constraints)
@@ -1545,117 +1452,6 @@ def _sup_ids_hw(orig, h, w, params):
     return jnp.minimum(sid, jnp.int32(_I32MAX - 1))
 
 
-def _st_kernel_levels(ts, tab, orig_slot, shape3, params, diag):
-    """Run schedule levels 0..st_levels-1 with the Pallas supertile-table
-    kernel (ops/tile_table): merge rounds VMEM-resident per (st_h, st_w)
-    supertile, level-end failure scans GLOBAL over the full edge table
-    (the masked-round semantics of `_table_round` with `sup`; see the
-    st_levels comment on OversegParams).  Returns the updated state with
-    all statistics re-aggregated from seed slots per level."""
-    from video_segment_tpu.ops import tile_table as tt
-
-    t, h, w = shape3
-    nseg0 = ts.label.shape[0]
-    sink = nseg0 - 1
-    n_sup = t * ((h + params.st_h - 1) // params.st_h) \
-        * ((w + params.st_w - 1) // params.st_w)
-    s_cap = params.st_slots
-    sr = s_cap // 128
-    interpret = jax.default_backend() != "tpu"
-
-    sup = _sup_ids_hw(orig_slot, h, w, params).at[sink].set(n_sup)
-    g2b, b2g = tt.blocked_layout(sup, n_sup, s_cap)
-
-    # Seed statistics (the entry state is the fresh table: every row is a
-    # seed, constraint groups already pre-merged into single rows).
-    seed_csum, seed_size, seed_sqsum = ts.csum, ts.size, ts.sqsum
-    size_b = seed_size[b2g].reshape(n_sup, sr, 128)
-    c_b = seed_csum[b2g]
-    c0_b = c_b[:, 0].reshape(n_sup, sr, 128)
-    c1_b = c_b[:, 1].reshape(n_sup, sr, 128)
-    c2_b = c_b[:, 2].reshape(n_sup, sr, 128)
-    blocked_b = ((ts.constr[b2g] >= 0) | ts.frozen[b2g]
-                 | (seed_size[b2g] <= 0.0)).astype(jnp.int32) \
-        .reshape(n_sup, sr, 128)
-
-    # Blocked edge planes from the global per-slot top-K: keep only
-    # same-supertile pairs with both endpoints placed; the rest wait for
-    # the global levels (identical to the masked-round deferral).
-    ptn, pbk = _topk_edges(tab, params.edge_topk)
-    k_edges = ptn.shape[1]
-    pg = g2b[jnp.minimum(ptn, sink)]
-    own_b = g2b
-    same = ((ptn < _I32MAX) & (pg >= 0) & (own_b[:, None] >= 0)
-            & (pg // s_cap == own_b[:, None] // s_cap))
-    packed = jnp.where(
-        same, (jnp.minimum(pbk, NUM_BUCKETS - 2) << tt._PBITS)
-        | (pg % s_cap), _I32MAX)
-    e_scatter = jnp.full((n_sup * s_cap + 1, k_edges), _I32MAX, jnp.int32) \
-        .at[jnp.where(own_b >= 0, own_b, n_sup * s_cap)].set(packed)[:-1]
-    edges_b = e_scatter.reshape(n_sup, sr, 128, k_edges) \
-        .transpose(0, 3, 1, 2)
-
-    # Launch-time local roots; positions whose root is blocked or
-    # unplaced stay identity (they never merge in-kernel anyway).
-    pos = jnp.arange(n_sup * s_cap, dtype=jnp.int32)
-    self_r = (pos % s_cap) // 128
-    self_c = pos % 128
-    slots_c = jnp.arange(nseg0, dtype=jnp.int32)
-    if nseg0 <= (1 << _PARTNER_BITS):
-        end_tab = tab
-    else:
-        bits, bshift = _pack_spec(nseg0)
-        end_tab = jnp.where(ptn < _I32MAX,
-                            ((jnp.minimum(pbk, NUM_BUCKETS - 2)
-                              >> bshift) << bits) | ptn, _I32MAX).T
-
-    for l in range(params.st_levels):
-        root_g = ts.label[b2g]
-        root_b = g2b[root_g]
-        ok = (root_b >= 0) & (root_b // s_cap == pos // s_cap)
-        labr = jnp.where(ok, (root_b % s_cap) // 128, self_r) \
-            .reshape(n_sup, sr, 128)
-        labc = jnp.where(ok, root_b % 128, self_c).reshape(n_sup, sr, 128)
-        fin_b = ts.fin[root_g].reshape(n_sup, sr, 128)
-        labr, labc = tt.tile_table_rounds(
-            labr, labc, size_b, c0_b, c1_b, c2_b, fin_b, blocked_b,
-            edges_b, theta=int(params.schedule[l]),
-            rounds=int(params.max_rounds_per_level),
-            merge_threshold=params.merge_threshold,
-            force_merge_weight=params.force_merge_weight,
-            metric=params.metric, interpret=interpret)
-        # Sync kernel labels into the global table and re-aggregate all
-        # per-root statistics from seeds (constr/fin/frozen read through
-        # the CURRENT roots — level_end may have unconstrained regions, so
-        # stale non-root rows must not be consulted).
-        lr = (labr * 128 + labc).reshape(n_sup, s_cap)
-        new_root_pos = (jnp.arange(n_sup, dtype=jnp.int32)[:, None] * s_cap
-                        + lr).reshape(-1)
-        new_root_g = b2g[new_root_pos]
-        new_label = jnp.where(g2b >= 0, new_root_g[
-            jnp.maximum(g2b, 0)], ts.label)
-        old_root = ts.label
-        cols = [seed_csum, seed_size[:, None],
-                ts.frozen[old_root].astype(jnp.float32)[:, None],
-                seed_sqsum]
-        stats = jax.ops.segment_sum(jnp.concatenate(cols, axis=1),
-                                    new_label, num_segments=nseg0)
-        constr = jax.ops.segment_max(ts.constr[old_root], new_label,
-                                     num_segments=nseg0)
-        fin = jax.ops.segment_min(ts.fin[old_root], new_label,
-                                  num_segments=nseg0)
-        ts = SolverState(new_label, stats[:, 0:3], stats[:, 3], constr,
-                         fin, stats[:, 4] > 0, stats[:, 5:8], None)
-        ts = _table_level_end(ts, end_tab, jnp.int32(params.schedule[l]),
-                              nseg0, sink, params)
-        if diag is not None:
-            act = jnp.sum(((ts.label == slots_c)
-                           & (ts.size > 0)).astype(jnp.int32))
-            diag = diag.at[l].set(
-                jnp.stack([jnp.int32(s_cap), jnp.int32(0), act]))
-    return ts, diag
-
-
 def _finish_table_solve(ts, tab, memb, orig_slot, init_label, shape3,
                         params, thetas, level_rounds, has_constraints):
     """Shared tail of the edge-table solver: top-K edges, schedule levels
@@ -1736,16 +1532,6 @@ def _finish_table_solve(ts, tab, memb, orig_slot, init_label, shape3,
     import os
     diag = (jnp.zeros((int(thetas.shape[0]), 3), jnp.int32)
             if os.environ.get("VST_SOLVE_DIAG") else None)
-    use_st_kernel = (
-        params.st_levels > 0 and not params.two_stage
-        and params.descriptor == "color_mean" and not params.gradient_trait
-        and (params.st_kernel if params.st_kernel is not None
-             else jax.default_backend() == "tpu"))
-    if use_st_kernel:
-        with jax.named_scope("overseg_st_kernel"):
-            ts, diag = _st_kernel_levels(ts, tab, orig_slot, shape3,
-                                         params, diag)
-        l = jnp.int32(params.st_levels)
     for pi, cap in enumerate(caps):
         sink = cap - 1
         if pi > 0:
@@ -1775,11 +1561,7 @@ def _finish_table_solve(ts, tab, memb, orig_slot, init_label, shape3,
                 go = go & (act_ > next_cap - 2)
             return go
 
-        # Masked-round gating only when the kernel is NOT handling the
-        # gated levels (with the kernel, `l` starts at st_levels and no
-        # rung ever executes a gated level).
-        sup = (_sup_ids(orig_slot, cap)
-               if params.st_levels > 0 and not use_st_kernel else None)
+        sup = _sup_ids(orig_slot, cap) if params.st_levels > 0 else None
 
         def body(carry, ptn=ptn, pbk=pbk, end_tab=end_tab, cap=cap,
                  sink=sink, slots_c=slots_c, sup=sup):
@@ -1962,9 +1744,7 @@ def _make_band_fn(t: int, h: int, w: int, params: OversegParams,
         tab_b = _extract_edges(memb_b.reshape(t, bh, w), vb,
                                flb if has_flow else None, nseg_b, cap_b,
                                params, global_base=bidx * cap_b,
-                               pack_domain=nseg_g,
-                               init_label=il.reshape(-1), orig_slot=orig_b,
-                               head_planes=head_planes)
+                               pack_domain=nseg_g)
         # Delocalize original-root voxel ids.
         orig_g = (orig_b // (bh * w)) * (h * w) + bidx * (bh * w) \
             + orig_b % (bh * w)

@@ -36,6 +36,39 @@ from video_segment_tpu.core.options import RegionSegmentationOptions
 from video_segment_tpu.segment_util import util
 
 
+# OpenCV's 8-bit COLOR_BGR2Lab in fixed point: sRGB gamma per channel
+# value (x8), the D65 RGB -> XYZ matrix over the white point (x4096), and
+# the Lab f(t) curve (x2^15) over the 3*255*8/2 reachable XYZ values.
+_GAMMA_X8 = np.rint(2040.0 * np.where(
+    np.arange(256) / 255.0 <= 0.04045, np.arange(256) / 255.0 / 12.92,
+    ((np.arange(256) / 255.0 + 0.055) / 1.055) ** 2.4)).astype(np.int32)
+_XYZ_X4096 = np.rint(4096.0 * np.array(
+    [[0.412453, 0.357580, 0.180423],
+     [0.212671, 0.715160, 0.072169],
+     [0.019334, 0.119193, 0.950227]])
+    / np.array([[0.950456], [1.0], [1.088754]])).astype(np.int32)
+_T = np.arange(3072) / 2040.0
+_LAB_F = np.rint(32768.0 * np.where(_T < 216.0 / 24389.0,
+                                    _T * 841.0 / 108.0 + 16.0 / 116.0,
+                                    np.cbrt(_T))).astype(np.int32)
+
+
+def bgr_to_lab(frame_bgr_u8: np.ndarray) -> np.ndarray:
+    """uint8 BGR -> uint8 CIE Lab with OpenCV's 8-bit encoding (L*255/100,
+    a+128, b+128): its fixed-point arithmetic, within +-1 of
+    cv2.cvtColor(..., COLOR_BGR2Lab)."""
+    rgb = _GAMMA_X8[frame_bgr_u8[..., ::-1]]
+    r, g, b = rgb[..., 0], rgb[..., 1], rgb[..., 2]
+    fx, fy, fz = (_LAB_F[(c[0] * r + c[1] * g + c[2] * b + 2048) >> 12]
+                  for c in _XYZ_X4096.tolist())
+    half = 1 << 14
+    lum = ((116 * 255 + 50) // 100 * fy
+           - (16 * 255 * 32768 + 50) // 100 + half) >> 15
+    a = (500 * (fx - fy) + 128 * 32768 + half) >> 15
+    b = (200 * (fy - fz) + 128 * 32768 + half) >> 15
+    return np.clip(np.stack([lum, a, b], axis=-1), 0, 255).astype(np.uint8)
+
+
 def _next_pow2(x: int) -> int:
     return 1 << max(4, (x - 1).bit_length())
 
@@ -174,11 +207,9 @@ class RegionSegmentation:
                   flow: np.ndarray | None = None):
         """Register appearance (+flow) features for a video frame.
 
-        Computed host-side with cv2/NumPy: per-frame device round-trips cost
+        Computed host-side with NumPy: per-frame device round-trips cost
         more in dispatch latency than this arithmetic."""
-        import cv2
-
-        lab = cv2.cvtColor(frame_bgr_u8, cv2.COLOR_BGR2Lab)
+        lab = bgr_to_lab(frame_bgr_u8)
         fb = fm = None
         if flow is not None:
             self._has_flow = True

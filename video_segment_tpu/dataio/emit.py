@@ -1,81 +1,52 @@
 """SegFrame -> serialized SegmentationDesc bytes.
 
-Bridges the core drivers' numpy result records to the wire format: hot RLE
-payload through the vectorized encoder, the (small, per-chunk) hierarchy
-through regular protobuf objects.
+Bridges the core drivers' numpy result records to the wire format through
+the vectorized encoder (dataio.fast_proto); the protobuf runtime is needed
+only for vectorized output, which edits a parsed message.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from video_segment_tpu import proto
 from video_segment_tpu.dataio import fast_proto
 
-
-def _neighbor_lists(ids: np.ndarray, pairs: np.ndarray):
-    """Per-region sorted neighbor id lists from unique (a,b) pairs."""
-    if len(pairs) == 0:
-        return {int(i): [] for i in ids}
-    src = np.concatenate([pairs[:, 0], pairs[:, 1]])
-    dst = np.concatenate([pairs[:, 1], pairs[:, 0]])
-    order = np.lexsort((dst, src))
-    src, dst = src[order], dst[order]
-    out = {int(i): [] for i in ids}
-    uniq, starts = np.unique(src, return_index=True)
-    bounds = np.append(starts, len(src))
-    for i, s in enumerate(uniq):
-        out[int(s)] = dst[bounds[i]:bounds[i + 1]].tolist()
-    return out
+N4_CONNECT = 1   # SegmentationDesc.Connectedness
 
 
-def _child_lists(parent_ids_of_children: np.ndarray | None,
-                 child_ids: np.ndarray | None):
-    if parent_ids_of_children is None:
-        return {}
-    order = np.lexsort((child_ids, parent_ids_of_children))
-    p, c = parent_ids_of_children[order], child_ids[order]
-    out = {}
-    uniq, starts = np.unique(p, return_index=True)
-    bounds = np.append(starts, len(p))
-    for i, s in enumerate(uniq):
-        out[int(s)] = c[bounds[i]:bounds[i + 1]].tolist()
-    return out
+def _lists(ids: np.ndarray, owner: np.ndarray, member: np.ndarray):
+    """Per-region sorted member lists as (counts, flat members) aligned
+    with ascending `ids`; entries whose owner is not in `ids` drop."""
+    order = np.lexsort((member, owner))
+    owner, member = owner[order], member[order]
+    pos = np.searchsorted(ids, owner)
+    ok = (pos < len(ids)) & (ids[np.minimum(pos, len(ids) - 1)] == owner)
+    return (np.bincount(pos[ok], minlength=len(ids)),
+            member[ok])
+
+
+def hierarchy_level_bytes(lvl) -> bytes:
+    """HierarchyLevelData -> serialized HierarchyLevel body.  Neighbor
+    lists come from the symmetric closure of the (a,b) pairs, child lists
+    from the (parent, child) pairs; both sorted."""
+    ids = np.asarray(lvl.ids, np.int64)
+    pairs = np.asarray(lvl.neighbor_pairs, np.int64).reshape(-1, 2)
+    n_counts, n_ids = _lists(ids, np.concatenate([pairs[:, 0], pairs[:, 1]]),
+                             np.concatenate([pairs[:, 1], pairs[:, 0]]))
+    c_counts = c_ids = None
+    if lvl.child_pairs is not None and len(lvl.child_pairs):
+        cp = np.asarray(lvl.child_pairs, np.int64)
+        c_counts, c_ids = _lists(ids, cp[:, 0], cp[:, 1])
+    return fast_proto.encode_hierarchy_level(
+        ids, lvl.sizes, lvl.start_frames, lvl.end_frames, n_counts, n_ids,
+        parent_ids=lvl.parent_ids, child_counts=c_counts, child_ids=c_ids)
 
 
 def hierarchy_to_proto(levels) -> list:
     """list[HierarchyLevelData] -> list[proto HierarchyLevel]."""
-    out = []
-    for lvl in levels:
-        msg = proto.HierarchyLevel()
-        nbrs = _neighbor_lists(lvl.ids, lvl.neighbor_pairs)
-        if lvl.child_pairs is not None and len(lvl.child_pairs):
-            children = _child_lists(lvl.child_pairs[:, 0], lvl.child_pairs[:, 1])
-        else:
-            children = {}
-        parent = lvl.parent_ids
-        for i, rid in enumerate(lvl.ids):
-            cr = msg.region.add()
-            cr.id = int(rid)
-            cr.size = int(lvl.sizes[i])
-            cr.neighbor_id.extend(nbrs.get(int(rid), []))
-            if parent is not None:
-                cr.parent_id = int(parent[i])
-            cr.child_id.extend(children.get(int(rid), []))
-            cr.start_frame = int(lvl.start_frames[i])
-            cr.end_frame = int(lvl.end_frames[i])
-        out.append(msg)
-    return out
-
-
-def _varint(n: int) -> bytes:
-    out = bytearray()
-    while True:
-        b = n & 0x7F
-        n >>= 7
-        out.append(b | (0x80 if n else 0))
-        if not n:
-            return bytes(out)
+    from video_segment_tpu import proto
+    return [proto.HierarchyLevel.FromString(hierarchy_level_bytes(lvl))
+            for lvl in levels]
 
 
 def _region_features_bytes(region_ids: np.ndarray) -> bytes:
@@ -87,7 +58,7 @@ def _region_features_bytes(region_ids: np.ndarray) -> bytes:
     out = bytearray()
     for rid in np.asarray(region_ids).tolist():
         body = b"\x0d" + int(rid).to_bytes(4, "little")   # field 1, fixed32
-        out += b"\x52" + _varint(len(body)) + body         # field 10, LEN
+        out += b"\x52" + fast_proto.encode_varint(len(body)) + body
     return bytes(out)
 
 
@@ -104,14 +75,15 @@ def segframe_to_bytes(sf, vectorize: bool = False,
     dimensions when segmentation ran on a downscaled video — requires
     remove_rasterization (the reference writer unit's upscale path,
     segmentation_unit.cpp:373-411)."""
-    hierarchy = hierarchy_to_proto(sf.hierarchy) if sf.hierarchy else None
+    hierarchy = ([hierarchy_level_bytes(lvl) for lvl in sf.hierarchy]
+                 if sf.hierarchy else None)
     payload = fast_proto.encode_frame(
         sf.region_ids, sf.interval_counts, sf.ys, sf.lxs, sf.rxs,
         getattr(sf, "moments", None),
         frame_width=sf.frame_width, frame_height=sf.frame_height,
         chunk_size=sf.chunk_size, overlap_start=sf.overlap_start,
         chunk_id=sf.chunk_id, hierarchy_frame_idx=sf.hierarchy_frame_idx,
-        connectedness=proto.N4_CONNECT, hierarchy=hierarchy)
+        connectedness=N4_CONNECT, hierarchy=hierarchy)
     if save_descriptors and hierarchy is not None:
         # The reference gates on output_hierarchy (segmentation.cpp:491):
         # features ride only on hierarchy (chunk-start) frames.
@@ -119,6 +91,7 @@ def segframe_to_bytes(sf, vectorize: bool = False,
     if not vectorize:
         return payload
 
+    from video_segment_tpu import proto
     from video_segment_tpu.segment_util import boundary, util
     intervals = np.stack([sf.ys, sf.lxs, sf.rxs], axis=1)
     lab = util.rasterize_ids(sf.region_ids.astype(np.int64),

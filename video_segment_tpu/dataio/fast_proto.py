@@ -6,9 +6,10 @@ Encoding one frame of a 1080p segmentation means serializing on the order of
 the proto2 wire format for the hot part — the `region` list with RLE
 rasterizations (reference schema: segment_util/segmentation.proto:56-98) —
 directly from NumPy arrays, vectorizing varint layout and byte emission.
-The slow-changing scalar fields and the per-chunk hierarchy are serialized
-with the regular protobuf classes and concatenated (proto2 permits fields in
-any order on the wire).
+The per-chunk hierarchy (`encode_hierarchy_level`) and the scalar fields
+are emitted the same way, in field-number order after the regions, so a
+frame's bytes equal what the protobuf classes would serialize and no
+protobuf runtime is needed to write a stream.
 
 Wire layout emitted per region entry (field numbers < 16 → 1-byte tags):
 
@@ -22,7 +23,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from video_segment_tpu import proto
+_U64 = (1 << 64) - 1
 
 
 def _varint_len(v: np.ndarray) -> np.ndarray:
@@ -52,8 +53,10 @@ def _write_varints(buf: np.ndarray, off: np.ndarray, v: np.ndarray,
 
 
 def encode_varint(v: int) -> bytes:
+    """Varint of a Python int; negative values take the 10-byte two's
+    complement form protobuf gives int32/int64 fields."""
     out = bytearray()
-    v = int(v)
+    v = int(v) & _U64
     while True:
         b = v & 0x7F
         v >>= 7
@@ -160,6 +163,65 @@ def encode_regions(region_ids: np.ndarray,
     return buf.tobytes()
 
 
+def encode_hierarchy_level(ids: np.ndarray,
+                           sizes: np.ndarray,
+                           start_frames: np.ndarray,
+                           end_frames: np.ndarray,
+                           neighbor_counts: np.ndarray,
+                           neighbor_ids: np.ndarray,
+                           parent_ids: np.ndarray | None = None,
+                           child_counts: np.ndarray | None = None,
+                           child_ids: np.ndarray | None = None) -> bytes:
+    """Serialize one HierarchyLevel message body (`repeated CompoundRegion
+    region = 2`, reference schema segmentation.proto:100-116).
+
+    Region r lists the next `neighbor_counts[r]` entries of `neighbor_ids`
+    (and of `child_ids`, if given) as its neighbors (children).  Every
+    CompoundRegion field is a varint with a 1-byte tag, so a region is a
+    run of (tag, varint) tokens in field-number order: id 1, size 2,
+    neighbor_id 3 (unpacked), parent_id 4, child_id 5, start_frame 6,
+    end_frame 7.  Values must be non-negative.
+    """
+    ids = np.asarray(ids, np.int64)
+    r = ids.shape[0]
+    if r == 0:
+        return b""
+    regions = np.arange(r)
+    cols = [(1, regions, ids), (2, regions, sizes),
+            (3, np.repeat(regions, neighbor_counts), neighbor_ids)]
+    if parent_ids is not None:
+        cols.append((4, regions, parent_ids))
+    if child_ids is not None:
+        cols.append((5, np.repeat(regions, child_counts), child_ids))
+    cols += [(6, regions, start_frames), (7, regions, end_frames)]
+    rec = np.concatenate([c[1] for c in cols])
+    field = np.concatenate([np.full(len(c[1]), c[0], np.int64)
+                            for c in cols])
+    vals = np.concatenate([np.asarray(c[2], np.int64).reshape(-1)
+                           for c in cols])
+    if (vals < 0).any():
+        raise ValueError("hierarchy values must be non-negative")
+    order = np.lexsort((field, rec))          # stable: lists keep order
+    rec, field, vals = rec[order], field[order], vals[order]
+
+    vlen = _varint_len(vals)
+    tok = 1 + vlen
+    payload = np.bincount(rec, tok, minlength=r).astype(np.int64)
+    s_pl = _varint_len(payload)
+    entry = 1 + s_pl + payload
+    rstart = np.concatenate(([0], np.cumsum(entry)))
+    buf = np.zeros(int(rstart[-1]), np.uint8)
+    buf[rstart[:-1]] = 0x12                    # HierarchyLevel.region = 2
+    _write_varints(buf, rstart[:-1] + 1, payload, s_pl)
+    body = rstart[:-1] + 1 + s_pl              # first token of each region
+    ctok = np.concatenate(([0], np.cumsum(tok)))
+    first = np.searchsorted(rec, regions)      # rec is sorted
+    toff = body[rec] + ctok[:-1] - ctok[first][rec]
+    buf[toff] = (field << 3).astype(np.uint8)  # wire type 0
+    _write_varints(buf, toff + 1, vals, vlen)
+    return buf.tobytes()
+
+
 def encode_frame(region_ids: np.ndarray,
                  interval_counts: np.ndarray,
                  ys: np.ndarray,
@@ -177,28 +239,20 @@ def encode_frame(region_ids: np.ndarray,
                  hierarchy: list | None = None) -> bytes:
     """Serialize a full SegmentationDesc for one frame.
 
-    `hierarchy` is an optional list of HierarchyLevel protobuf messages
-    (cold path, regular protobuf serialization).
+    `hierarchy` is an optional list of serialized HierarchyLevel message
+    bodies (`encode_hierarchy_level`).
     """
-    desc = proto.SegmentationDesc()
-    desc.frame_width = int(frame_width)
-    desc.frame_height = int(frame_height)
-    if chunk_size is not None:
-        desc.chunk_size = int(chunk_size)
-    if overlap_start is not None:
-        desc.overlap_start = int(overlap_start)
-    if chunk_id is not None:
-        desc.chunk_id = int(chunk_id)
-    if hierarchy_frame_idx is not None:
-        desc.hierarchy_frame_idx = int(hierarchy_frame_idx)
-    if connectedness is not None:
-        desc.connectedness = int(connectedness)
-    if hierarchy:
-        for level in hierarchy:
-            desc.hierarchy.add().CopyFrom(level)
-    tail = desc.SerializeToString()
-    head = encode_regions(region_ids, interval_counts, ys, lxs, rxs, moments)
-    return head + tail
+    out = [encode_regions(region_ids, interval_counts, ys, lxs, rxs,
+                          moments)]
+    for level in hierarchy or ():
+        out.append(b"\x1a" + encode_varint(len(level)) + level)
+    for field, value in ((4, frame_width), (5, frame_height),
+                         (6, chunk_size), (7, overlap_start),
+                         (8, chunk_id), (9, hierarchy_frame_idx),
+                         (12, connectedness)):
+        if value is not None:
+            out.append(bytes([field << 3]) + encode_varint(value))
+    return b"".join(out)
 
 
 def decode_rasterizations(desc) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
@@ -214,3 +268,115 @@ def decode_rasterizations(desc) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
             rows.append((si.y, si.left_x, si.right_x))
     intervals = np.array(rows, np.int32).reshape(-1, 3)
     return (np.array(ids, np.int32), np.array(counts, np.int32), intervals)
+
+
+def _read_varint(buf: bytes, i: int) -> tuple[int, int]:
+    v = shift = 0
+    while True:
+        b = buf[i]
+        i += 1
+        v |= (b & 0x7F) << shift
+        if b < 0x80:
+            return v, i
+        shift += 7
+
+
+def _fields(buf: bytes):
+    """Yield (field number, wire type, value) over one message's bytes;
+    LEN values are bytes, varints ints, fixed32/64 raw bytes."""
+    i, n = 0, len(buf)
+    while i < n:
+        key, i = _read_varint(buf, i)
+        wt = key & 7
+        if wt == 0:
+            v, i = _read_varint(buf, i)
+        elif wt == 2:
+            ln, i = _read_varint(buf, i)
+            v, i = buf[i:i + ln], i + ln
+        elif wt == 5:
+            v, i = buf[i:i + 4], i + 4
+        elif wt == 1:
+            v, i = buf[i:i + 8], i + 8
+        else:
+            raise ValueError(f"unsupported wire type {wt}")
+        yield key >> 3, wt, v
+
+
+def _int32(v: int) -> int:
+    """Varint payload of an int32 field (negatives are 64-bit two's
+    complement on the wire)."""
+    return v - (1 << 64) if v >= 1 << 63 else v
+
+
+def _ints(wt: int, v) -> list:
+    """A repeated int32 field entry, unpacked (varint) or packed (LEN)."""
+    if wt == 0:
+        return [_int32(v)]
+    out, i = [], 0
+    while i < len(v):
+        x, i = _read_varint(v, i)
+        out.append(_int32(x))
+    return out
+
+
+def decode_frame(payload: bytes) -> dict:
+    """Parse SegmentationDesc wire bytes without the protobuf runtime.
+
+    Returns the scalar fields by name, `region_ids` (R,), `interval_counts`
+    (R,) and `intervals` (I,3) [y, left_x, right_x] in stream order, and
+    `hierarchy`: one dict per HierarchyLevel with per-region `ids`,
+    `sizes`, `parent_ids` (-1 unset), `neighbors` and `children` (lists),
+    `start_frames` and `end_frames`.  Vectorizations and features are
+    skipped."""
+    names = {4: "frame_width", 5: "frame_height", 6: "chunk_size",
+             7: "overlap_start", 8: "chunk_id", 9: "hierarchy_frame_idx",
+             12: "connectedness", 13: "rasterization_removed"}
+    out = {"frame_width": 0, "frame_height": 0, "chunk_id": -1,
+           "hierarchy_frame_idx": 0, "hierarchy": []}
+    ids, counts, rows = [], [], []
+    for f, wt, v in _fields(payload):
+        if f in names and wt == 0:
+            out[names[f]] = _int32(v)
+        elif f == 2:
+            rid, n = 0, 0
+            for rf, _, rv in _fields(v):
+                if rf == 1:
+                    rid = _int32(rv)
+                elif rf == 3:
+                    for _, _, si in _fields(rv):
+                        iv = [0, 0, 0]
+                        for sf, _, x in _fields(si):
+                            iv[sf - 1] = _int32(x)
+                        rows.append(iv)
+                        n += 1
+            ids.append(rid)
+            counts.append(n)
+        elif f == 3:
+            out["hierarchy"].append(_decode_level(v))
+    out["region_ids"] = np.array(ids, np.int64)
+    out["interval_counts"] = np.array(counts, np.int64)
+    out["intervals"] = np.array(rows, np.int64).reshape(-1, 3)
+    return out
+
+
+def _decode_level(buf: bytes) -> dict:
+    lvl = {k: [] for k in ("ids", "sizes", "parent_ids", "neighbors",
+                           "children", "start_frames", "end_frames")}
+    for f, _, v in _fields(buf):
+        if f != 2:
+            continue
+        r = {1: 0, 2: 0, 4: -1, 6: 0, 7: 0}
+        nb, ch = [], []
+        for cf, cwt, cv in _fields(v):
+            if cf == 3:
+                nb += _ints(cwt, cv)
+            elif cf == 5:
+                ch += _ints(cwt, cv)
+            elif cf in r:
+                r[cf] = _int32(cv)
+        for key, fld in (("ids", 1), ("sizes", 2), ("parent_ids", 4),
+                         ("start_frames", 6), ("end_frames", 7)):
+            lvl[key].append(r[fld])
+        lvl["neighbors"].append(nb)
+        lvl["children"].append(ch)
+    return lvl

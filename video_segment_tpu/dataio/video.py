@@ -1,4 +1,4 @@
-"""Video decode/encode on the host (cv2-backed).
+"""Video decode/encode on the host (cv2-backed, imported on first use).
 
 Equivalent of the reference's FFmpeg reader/writer units
 (video_framework/video_reader_unit.{h,cpp}, video_writer_unit.{h,cpp}):
@@ -11,7 +11,6 @@ from __future__ import annotations
 
 import dataclasses
 
-import cv2
 import numpy as np
 
 
@@ -68,6 +67,8 @@ class VideoReader:
     def __init__(self, path: str, downscale: str = "none",
                  downscale_factor: float = 1.0, downscale_size: int = 0,
                  trim_to: int = 0):
+        import cv2
+
         self._cap = cv2.VideoCapture(0 if path == "CAMERA" else path)
         if not self._cap.isOpened():
             raise IOError(f"cannot open video: {path}")
@@ -84,6 +85,8 @@ class VideoReader:
         self._read = 0
 
     def __iter__(self):
+        import cv2
+
         while True:
             if self._trim_to and self._read >= self._trim_to:
                 return
@@ -106,6 +109,8 @@ class VideoReader:
         """Position the stream so the next read returns `frame_idx`
         (checkpoint resume; the reference reader seeks via
         av_seek_frame + nonkey skip, video_reader_unit.cpp:401-443)."""
+        import cv2
+
         self._cap.set(cv2.CAP_PROP_POS_FRAMES, frame_idx)
         self._read = frame_idx
 
@@ -127,6 +132,8 @@ class VideoWriter:
                  scale: float = 1.0, scale_max_dim: int = 0,
                  scale_min_dim: int = 0, fraction: int = 4,
                  quality: float = 0.0, fourcc: str = "mp4v"):
+        import cv2
+
         if scale_max_dim and scale_min_dim:
             raise ValueError("scale_max_dim and scale_min_dim are "
                              "mutually exclusive")
@@ -149,6 +156,8 @@ class VideoWriter:
             self._w.set(cv2.VIDEOWRITER_PROP_QUALITY, quality)
 
     def write(self, frame_bgr: np.ndarray):
+        import cv2
+
         if frame_bgr.shape[1] != self.width \
                 or frame_bgr.shape[0] != self.height:
             frame_bgr = cv2.resize(frame_bgr, (self.width, self.height),

@@ -1,44 +1,66 @@
 """ctypes bindings for the native host kernels (built on first import).
 
-Falls back to None handles if the toolchain is unavailable; callers keep a
-pure-NumPy/SciPy path.
+The library is compiled from the committed `vst_native.cc` into `build/`,
+named by the source's hash and the host it was built on, so a library
+copied from another machine (or built from other sources) is never
+loaded.  Falls back to None handles if the toolchain is unavailable;
+callers keep a pure-NumPy/SciPy path.
 """
 
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
+import platform
 import subprocess
+import tempfile
 
 import numpy as np
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(_HERE, "vst_native.cc")
-_LIB = os.path.join(_HERE, "vst_native.so")
+_BUILD = os.path.join(_HERE, "build")
 
 _lib = None
 
 
-def _build() -> bool:
-    try:
-        if (not os.path.exists(_LIB)
-                or os.path.getmtime(_LIB) < os.path.getmtime(_SRC)):
-            subprocess.run(
-                ["g++", "-O3", "-march=native", "-shared", "-fPIC",
-                 "-pthread", "-o", _LIB, _SRC],
-                check=True, capture_output=True)
+def lib_path() -> str:
+    """Where the library for this source and this host lives."""
+    with open(_SRC, "rb") as f:
+        digest = hashlib.sha256(f.read()).hexdigest()[:16]
+    host = f"{platform.machine()}-{platform.node()}".replace(os.sep, "_")
+    return os.path.join(_BUILD, f"vst_native-{digest}-{host}.so")
+
+
+def _build(path: str) -> bool:
+    if os.path.exists(path):
         return True
-    except Exception:
+    os.makedirs(_BUILD, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD)
+    os.close(fd)
+    try:
+        subprocess.run(
+            ["g++", "-O3", "-march=native", "-shared", "-fPIC",
+             "-pthread", "-o", tmp, _SRC],
+            check=True, capture_output=True)
+        os.replace(tmp, path)       # atomic: concurrent builds agree
+        return True
+    except (OSError, subprocess.CalledProcessError):
         return False
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
 
 
 def _load():
     global _lib
     if _lib is not None:
         return _lib
-    if not _build():
+    path = lib_path()
+    if not _build(path):
         return None
-    lib = ctypes.CDLL(_LIB)
+    lib = ctypes.CDLL(path)
     lib.multi_label_cc.restype = ctypes.c_int32
     lib.multi_label_cc.argtypes = [
         ctypes.POINTER(ctypes.c_int32), ctypes.c_int32, ctypes.c_int32,

@@ -1,6 +1,6 @@
 // Native host kernels for the streaming runtime.
 //
-// The TPU owns the numeric path; these are the host-side hot loops the
+// The device owns the numeric path; these are the host-side hot loops the
 // reference implements in C++ and that NumPy cannot express efficiently:
 //  - multi_label_cc: per-frame N4 connected components of a multi-label
 //    image (one union-find pass), the core of the spatial-connectedness

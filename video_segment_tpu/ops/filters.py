@@ -56,8 +56,7 @@ def bilateral_filter(img: jnp.ndarray, sigma_space: float = 3.0,
     """Bilateral filter of an (H,W,C) float image.
 
     Full-window formulation: all taps unrolled into a stacked shift tensor so
-    XLA fuses the weight computation; VMEM-tiled Pallas variant can replace
-    this if it ever shows up in profiles (it is ~50 taps of elementwise work).
+    XLA fuses the weight computation (it is ~50 taps of elementwise work).
     """
     radius = int(sigma_space * 1.5)
     offs = _circular_offsets(radius)

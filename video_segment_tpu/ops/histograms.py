@@ -1,6 +1,6 @@
 """Region descriptor histograms and distances (device-side).
 
-TPU formulation of the reference's descriptor framework
+Device formulation of the reference's descriptor framework
 (segmentation/region_descriptor.{h,cpp}, segmentation/histograms.{h,cpp}):
 sparse per-region hash histograms become dense (R, bins) tables filled with
 batched scatter-adds over whole frames; pairwise descriptor distances become

@@ -1,6 +1,6 @@
 """Pixel/descriptor distance functions and aggregators.
 
-TPU-side counterparts of the reference's pixel_distance policy classes:
+Device-side counterparts of the reference's pixel_distance policy classes:
 
 - ColorDiff3L1 / ColorDiff3L2 (pixel_distance.h:141-157): mean-normalized
   L1/L2 over 3 color channels.

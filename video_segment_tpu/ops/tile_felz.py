@@ -1,27 +1,32 @@
-"""Pallas tile-local Felzenszwalb solver (Stage A of the v2 over-segmenter).
+"""Tile-local Felzenszwalb pre-solve (Stage A of the v2 over-segmenter).
 
 Runs the full bucket-schedule merge semantics of the reference
 (segmentation_graph.h:339-463: ascending weight levels, mean-color
-descriptor gate, finalize-on-failed-test) *locally* inside (8,128) VMEM
+descriptor gate, finalize-on-failed-test) *locally* inside (8,128)
 tiles, one frame at a time, so the global edge-table solver starts from
 ~10-100x fewer regions than raw pixels.  Cross-tile, temporal, constraint,
 and min-region-size semantics are NOT handled here — they belong to the
-global phases.
+global phases.  The tile decides which pixels may merge here, and the
+solver's quality defaults were tuned on it.
 
-Everything is VMEM-resident and label-indexed work is expressed as
-one-hot contractions so the MXU does it:
+Every tile is solved independently in plain jnp, vmapped over all tiles
+of the volume; the level/round loop runs once for the whole batch.  A
+tile label is a (row, col) pair (labr in [0,8), labc in [0,128)), so
+label tables are (8,128)-shaped like the tile:
 
-- a tile label is a (row, col) pair (labr in [0,8), labc in [0,128)), so
-  tables are (8,128)-shaped and no (8,128)->(1024,..) reshape is needed
-  (Mosaic rejects that shape cast);
-- aggregate(v)[a,b]   = sum of v over pixels with label (a,b):
-  per-channel dot_general batched over pixel rows;
-- distribute(T)[i,j]  = T[labr[i,j], labc[i,j]]:
-  one dot_general against the row one-hot + a masked lane reduction;
-- per-label min/max: masked (8,128,128) reductions per label row.
+- aggregate(v)[a,b]   = sum of v over pixels with label (a,b): one
+  dot_general against the column one-hot, batched over pixel rows.  A
+  contraction, not a scatter-add, so the float sums come out in the same
+  order on every run;
+- distribute(T)[i,j]  = T[labr[i,j], labc[i,j]]: a gather;
+- per-label min: a segment min (exact in any order).
+
+The contractions ask for Precision.HIGHEST: on the GPU a float32 dot may
+otherwise run in TF32, and region color sums would lose about three
+digits.
 
 The pure-NumPy mirror `tile_felz_reference` implements the identical
-round structure; tests assert exact label equality in interpret mode.
+round structure; tests assert exact label equality.
 """
 
 from __future__ import annotations
@@ -31,15 +36,14 @@ import functools
 import jax
 import jax.numpy as jnp
 import numpy as np
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 from video_segment_tpu.ops import cc
 
 TILE_H = 8
 TILE_W = 128
 NUM_BUCKETS = 2048
-_BIG = 2 ** 30  # python int; jnp constants would be captured by the kernel
+_BIG = 2 ** 30
+_HIGHEST = jax.lax.Precision.HIGHEST
 
 # In-tile N8 directions as (dy, dx); every edge is proposed from both ends.
 DIRS = ((0, 1), (0, -1), (1, 0), (-1, 0), (1, 1), (1, -1), (-1, 1), (-1, -1))
@@ -47,98 +51,60 @@ DIRS = ((0, 1), (0, -1), (1, 0), (-1, 0), (1, 1), (1, -1), (-1, 1), (-1, -1))
 
 def _roll2(x, dy, dx):
     """Neighbor view: value at (i+dy, j+dx), non-wrapping handled by masks."""
-    return pltpu.roll(pltpu.roll(x, (-dy) % TILE_H, axis=0),
-                      (-dx) % TILE_W, axis=1)
+    return jnp.roll(x, (-dy, -dx), axis=(0, 1))
 
 
 def _onehot_cols(labc):
     """(8,128) int32 col labels -> (8,128,128) bool one-hot over columns.
 
-    Built ONCE per round and threaded through every aggregate / distribute
-    / per-label reduction.  Everything label-indexed runs as per-label-ROW
-    slices against this column one-hot: all large intermediates keep a
-    128-wide minor dimension (lane-aligned) — an (i,j,a) row one-hot has
-    minor dim 8 and wastes 15/16 of each vector register."""
+    Sums run as per-label-ROW slices against this column one-hot, so the
+    large intermediates are (8,128,128) and not (1024,1024)."""
     b = jax.lax.broadcasted_iota(jnp.int32, (TILE_H, TILE_W, TILE_W), 2)
     return labc[:, :, None] == b
 
 
-def _row_iota3():
-    """(a, i, j) iota over the label-row axis a."""
-    return jax.lax.broadcasted_iota(
-        jnp.int32, (TILE_H, TILE_H, TILE_W), 0)
-
-
-def _aggregate(labr, ohc_f, v):
-    """Sum v (8,128) into label table (8,128): T[a,b] = sum over pixels
-    with label (a,b).  lhs[i,a,j] = v[i,j] masked to label row a; one dot
-    batched over pixel rows i contracting j (Mosaic needs a single
-    contracting dim), then a sum over i.  128-minor operands throughout."""
-    return _aggregate_many(labr, ohc_f, [v])[0]
-
-
 def _aggregate_many(labr, ohc_f, vs):
-    """Fused _aggregate of K value planes: ONE dot against the column
-    one-hot (its (8,128,128) read dominated per-round traffic when issued
-    per plane).  Each output row is the same contraction the single-plane
-    form computes, so results are identical."""
+    """Sum each of K value planes v (8,128) into a label table (8,128):
+    T[a,b] = sum over pixels with label (a,b).  lhs[i,a,j] = v[i,j] masked
+    to label row a; ONE dot against the column one-hot, batched over pixel
+    rows i and contracting j, then a sum over i."""
     k = len(vs)
     a3 = jax.lax.broadcasted_iota(jnp.int32, (TILE_H, TILE_H, TILE_W), 1)
     mask = labr[:, None, :] == a3                       # (i, a, j)
     lhs = jnp.concatenate(
         [jnp.where(mask, v[:, None, :], 0.0) for v in vs], axis=1)
     out = jax.lax.dot_general(lhs, ohc_f, (((2,), (1,)), ((0,), (0,))),
+                              precision=_HIGHEST,
                               preferred_element_type=jnp.float32)
     out = jnp.sum(out, axis=0)                          # (k*8, 128)
     return [out[i * TILE_H:(i + 1) * TILE_H] for i in range(k)]
 
 
-def _distribute(labr, ohc_f, table):
-    """Per-pixel value of its label: g[i,j] = table[labr[i,j], labc[i,j]].
-    p[a,i,j] = table[a, labc[i,j]] via one dot against the column one-hot,
-    then a masked sum over the 8 label rows."""
-    return _distribute_many(labr, ohc_f, [table])[0]
+def _distribute(labr, labc, table):
+    """Per-pixel value of its label: g[i,j] = table[labr[i,j], labc[i,j]]
+    (a gather, exact for any value)."""
+    return _distribute_many(labr, labc, [table])[0]
 
 
-def _distribute_many(labr, ohc_f, tables):
-    """Fused _distribute of K tables (one one-hot read)."""
-    k = len(tables)
-    stk = jnp.concatenate(tables, axis=0)               # (k*8, 128)
-    p = jax.lax.dot_general(stk, ohc_f, (((1,), (2,)), ((), ())),
-                            preferred_element_type=jnp.float32)
-    p = p.reshape(k, TILE_H, TILE_H, TILE_W)            # (k, a, i, j)
-    mask = labr[None] == _row_iota3()
-    return [jnp.sum(jnp.where(mask, p[i], 0.0), axis=0) for i in range(k)]
+def _distribute_many(labr, labc, tables):
+    """Fused _distribute of K tables (one gather)."""
+    stk = jnp.stack(tables).reshape(len(tables), TILE_H * TILE_W)
+    g = stk[:, labr * TILE_W + labc]
+    return [g[i] for i in range(len(tables))]
 
 
-def _label_min(labr, ohc, v):
-    """Per-label min of v (+_BIG identity), returned as a (8,128) table."""
-    rows = []
-    vb = jnp.where(ohc, v[:, :, None].astype(jnp.float32), 2.0 ** 31)
-    labr3 = labr[:, :, None]   # int32 minor-dim insertion (i1 unsupported)
-    for a in range(TILE_H):
-        va = jnp.where(labr3 == a, vb, 2.0 ** 31)
-        rows.append(jnp.min(va, axis=(0, 1))[None, :])
-    return jnp.concatenate(rows, axis=0).astype(jnp.int32)
-
-
-def _label_min_masked(labr, ohc, v):
-    """Per-label min of f32 v (+big identity), as (8,128) f32 table."""
-    rows = []
-    vb = jnp.where(ohc, v[:, :, None], 2.0 ** 31)
-    labr3 = labr[:, :, None]
-    for a in range(TILE_H):
-        va = jnp.where(labr3 == a, vb, 2.0 ** 31)
-        rows.append(jnp.min(va, axis=(0, 1))[None, :])
-    return jnp.concatenate(rows, axis=0)
+def _label_min(labr, labc, v):
+    """Per-label min of v as an (8,128) table; labels that own no pixel
+    hold the dtype's largest value."""
+    return jax.ops.segment_min(v.reshape(-1), (labr * TILE_W + labc)
+                               .reshape(-1), num_segments=TILE_H * TILE_W,
+                               indices_are_sorted=False) \
+        .reshape(TILE_H, TILE_W)
 
 
 def _compose(pa, pb):
     """One pointer-jump of the (row,col) parent tables: P <- P[P]."""
-    ohc_f = _onehot_cols(pb).astype(jnp.float32)
-    pa2, pb2 = _distribute_many(pa, ohc_f, [pa.astype(jnp.float32),
-                                            pb.astype(jnp.float32)])
-    return pa2.astype(jnp.int32), pb2.astype(jnp.int32)
+    return tuple(_distribute_many(pa, pb, [pa, pb]))
 
 
 def _dist(a, b, metric):
@@ -150,24 +116,13 @@ def _dist(a, b, metric):
     return jnp.sqrt((d0 * d0 + d1 * d1 + d2 * d2) * (1.0 / 3.0))
 
 
-def _solve_subtile(color3, gy, gx, h, w, *, schedule, rounds_per_level,
-                   merge_threshold, metric, fin_margin,
-                   fin_eager=False, fin_gated=False, pair_merge=False):
-    """Full local solve of one (8,128) subtile.  Returns flat local root
-    label (8,128) int32 in [0,1024) and per-pixel fin flag (8,128) f32.
-
-    The level/round iteration runs as ONE lax.fori_loop body (merge round
-    or conditional level-end), keeping the Mosaic program small: iteration
-    i of n_levels*(rounds_per_level+1) decodes to level i//(R+1) and phase
-    i%(R+1); theta comes from a branch-free select over the static
-    schedule."""
+def _tile_edges(color3, y0, x0, h, w, metric):
+    """Static per-direction edge buckets + validity of one tile whose
+    top-left pixel is (y0, x0) in the (h, w) frame."""
     rows = jax.lax.broadcasted_iota(jnp.int32, (TILE_H, TILE_W), 0)
     cols = jax.lax.broadcasted_iota(jnp.int32, (TILE_H, TILE_W), 1)
-    inb = (gy < h) & (gx < w)
-
+    inb = (y0 + rows < h) & (x0 + cols < w)
     c = [color3[:, :, 0], color3[:, :, 1], color3[:, :, 2]]
-
-    # Static per-direction edge buckets + validity.
     buckets = []
     valids = []
     for dy, dx in DIRS:
@@ -175,33 +130,54 @@ def _solve_subtile(color3, gy, gx, h, w, *, schedule, rounds_per_level,
         d = _dist(c, nb, metric)
         bkt = jnp.clip((d * NUM_BUCKETS).astype(jnp.int32), 0,
                        NUM_BUCKETS - 1)
-        nb_inb = _roll2(inb.astype(jnp.int32), dy, dx) > 0
+        nb_inb = _roll2(inb, dy, dx)
         v = (inb & nb_inb
              & (rows + dy >= 0) & (rows + dy < TILE_H)
              & (cols + dx >= 0) & (cols + dx < TILE_W))
         buckets.append(bkt)
         valids.append(v)
+    return c, buckets, valids
+
+
+def _solve_tiles(color, y0, x0, h, w, *, schedule, rounds_per_level,
+                 merge_threshold, metric, fin_margin,
+                 fin_eager=False, fin_gated=False, pair_merge=False):
+    """Full local solve of a batch of (8,128) tiles: color (N,8,128,3),
+    tile origins y0/x0 (N,).  Returns per tile the flat local root label
+    (8,128) int32 in [0,1024), the per-pixel fin level (8,128) f32, and
+    the cell-positioned region size and color-sum tables.
+
+    The level/round iteration runs as ONE lax.fori_loop over the whole
+    batch (merge round or level end, chosen by lax.cond outside the vmap
+    so only the taken branch runs): iteration i decodes to (theta, merge
+    or level end, round parity) from a static table."""
+    rows = jax.lax.broadcasted_iota(jnp.int32, (TILE_H, TILE_W), 0)
+    cols = jax.lax.broadcasted_iota(jnp.int32, (TILE_H, TILE_W), 1)
+    tiles = jax.vmap(functools.partial(_tile_edges, h=h, w=w,
+                                       metric=metric))(color, y0, x0)
 
     n_levels = len(schedule)
     rounds = ((rounds_per_level,) * n_levels
               if isinstance(rounds_per_level, int)
               else tuple(rounds_per_level))
-    assert len(rounds) == n_levels, (rounds, schedule)
+    if len(rounds) != n_levels:
+        raise ValueError(f"rounds_per_level {rounds} does not match "
+                         f"schedule {schedule}")
 
-    def region_views(labr, ohc_f):
+    def region_views(c, labr, labc, ohc_f):
         """Per-pixel region means (fused aggregate + distribute)."""
         ones = jnp.ones((TILE_H, TILE_W), jnp.float32)
         size_t, s0, s1, s2 = _aggregate_many(labr, ohc_f, [ones] + c)
         den = jnp.maximum(size_t, 1.0)
-        return _distribute_many(labr, ohc_f, [s0 / den, s1 / den, s2 / den])
+        return _distribute_many(labr, labc, [s0 / den, s1 / den, s2 / den])
 
-    def merge_round(labr, labc, fin_t, fin_x, theta, rnd):
-        ohc = _onehot_cols(labc)
-        ohc_f = ohc.astype(jnp.float32)
+    def merge_round(tile, labr, labc, fin_t, fin_x, theta, rnd):
+        c, buckets, valids = tile
+        ohc_f = _onehot_cols(labc).astype(jnp.float32)
         ones = jnp.ones((TILE_H, TILE_W), jnp.float32)
         size_t, s0, s1, s2 = _aggregate_many(labr, ohc_f, [ones] + c)
         den = jnp.maximum(size_t, 1.0)
-        mean_px0 = _distribute_many(labr, ohc_f,
+        mean_px0 = _distribute_many(labr, labc,
                                     [s0 / den, s1 / den, s2 / den, fin_t])
         mean_px, fin_px = mean_px0[:3], mean_px0[3]   # f32 finalize level
         lab_flat = labr * TILE_W + labc
@@ -242,10 +218,10 @@ def _solve_subtile(color3, gy, gx, h, w, *, schedule, rounds_per_level,
             # Fold the existing tables through the aggregation (cell a's
             # pixel carries label b after an a->b hook, so aggregating the
             # table AS a pixel plane transfers orphaned fins to the root).
-            fin_t = _label_min_masked(labr, ohc, jnp.minimum(fail, fin_t))
-            fin_x = _label_min_masked(labr, ohc, jnp.minimum(strong, fin_x))
+            fin_t = _label_min(labr, labc, jnp.minimum(fail, fin_t))
+            fin_x = _label_min(labr, labc, jnp.minimum(strong, fin_x))
 
-        best_t = _label_min(labr, ohc, best)
+        best_t = _label_min(labr, labc, best)
         partner = best_t & 1023
         have = best_t < _BIG
         own_flat = rows * TILE_W + cols           # table cell's own label id
@@ -260,20 +236,18 @@ def _solve_subtile(color3, gy, gx, h, w, *, schedule, rounds_per_level,
             # survives, so progress is guaranteed.
             pa_t = partner >> 7
             pb_t = partner & 127
-            hookp = _distribute(pa_t, _onehot_cols(pb_t).astype(jnp.float32),
-                                jnp.where(hook, 1.0, 0.0))
-            hook = hook & (hookp < 0.5)
+            hook = hook & ~_distribute(pa_t, pb_t, hook)
         pa = jnp.where(hook, partner >> 7, rows)
         pb = jnp.where(hook, partner & 127, cols)
         # Parity hooking chains are monotone; one jump resolves <=2 deep.
         # Deeper chains leave stale labels that simply re-merge next round
         # (and the caller's final pointer_jump resolves any residue).
         pa, pb = _compose(pa, pb)
-        labr2, labc = (x.astype(jnp.int32) for x in _distribute_many(
-            labr, ohc_f, [pa.astype(jnp.float32), pb.astype(jnp.float32)]))
+        labr2, labc = _distribute_many(labr, labc, [pa, pb])
         return labr2, labc, fin_t, fin_x
 
-    def level_end(labr, labc, fin_t, fin_x, theta, _rnd):
+    def level_end(tile, labr, labc, fin_t, fin_x, theta):
+        c, buckets, valids = tile
         # A failed merge test finalizes both endpoint regions FROM THE
         # FAILING EDGE'S WEIGHT UP (segmentation_graph.h:399-402 processes
         # edges in ascending order, so "finalized forever" there means
@@ -286,11 +260,10 @@ def _solve_subtile(color3, gy, gx, h, w, *, schedule, rounds_per_level,
         # failures (dd >= margin * threshold): borderline tile-local
         # failures often dissolve once the global phase sees whole-region
         # means (round-3 sweep).
-        ohc = _onehot_cols(labc)
-        ohc_f = ohc.astype(jnp.float32)
-        mean_px = region_views(labr, ohc_f)
+        ohc_f = _onehot_cols(labc).astype(jnp.float32)
+        mean_px = region_views(c, labr, labc, ohc_f)
         lab_flat = labr * TILE_W + labc
-        fin_px = _distribute(labr, ohc_f, fin_t) if fin_gated else None
+        fin_px = _distribute(labr, labc, fin_t) if fin_gated else None
         fail = jnp.full((TILE_H, TILE_W), _BIG, jnp.int32)
         strong = jnp.full((TILE_H, TILE_W), _BIG, jnp.int32)
         for k, (dy, dx) in enumerate(DIRS):
@@ -319,41 +292,43 @@ def _solve_subtile(color3, gy, gx, h, w, *, schedule, rounds_per_level,
             # Transfer orphaned fins of merged-away roots (see merge_round).
             fail_f = jnp.minimum(fail_f, fin_t)
             strong_f = jnp.minimum(strong_f, fin_x)
-            fin_t = _label_min_masked(labr, ohc, fail_f)
-            fin_x = _label_min_masked(labr, ohc, strong_f)
+            fin_t = _label_min(labr, labc, fail_f)
+            fin_x = _label_min(labr, labc, strong_f)
         else:
-            fin_t = jnp.minimum(fin_t, _label_min_masked(labr, ohc, fail_f))
-            fin_x = jnp.minimum(
-                fin_x, _label_min_masked(labr, ohc, strong_f))
+            fin_t = jnp.minimum(fin_t, _label_min(labr, labc, fail_f))
+            fin_x = jnp.minimum(fin_x, _label_min(labr, labc, strong_f))
         return labr, labc, fin_t, fin_x
 
-    # Static per-iteration decode (theta, merge-vs-level-end, round parity
-    # index) via branch-free scalar selects (Pallas kernels cannot capture
-    # constant arrays): a per-LEVEL round count (rounds may be a tuple,
-    # e.g. many depth-1 rounds at low thetas where convergence is safe,
-    # few at the texture-forming levels) without a ragged loop structure.
-    iters = []                                   # (theta, is_merge, rnd)
-    for lv, th in enumerate(schedule):
-        for ph in range(rounds[lv] + 1):
-            iters.append((th, ph < rounds[lv], ph))
+    # Per-iteration (theta, is_merge, round parity): a per-LEVEL round
+    # count (rounds may be a tuple, e.g. many depth-1 rounds at low thetas
+    # where convergence is safe, few at the texture-forming levels)
+    # without a ragged loop structure.
+    iters = np.array([(th, ph < rounds[lv], ph)
+                      for lv, th in enumerate(schedule)
+                      for ph in range(rounds[lv] + 1)], np.int32)
+    merge_v = jax.vmap(merge_round, in_axes=(0, 0, 0, 0, 0, None, None))
+    level_end_v = jax.vmap(level_end, in_axes=(0, 0, 0, 0, 0, None))
 
     def body(i, carry):
-        labr, labc, fin_t, fin_x = carry
-        theta = jnp.int32(0)
-        merge = jnp.bool_(False)
-        rnd = jnp.int32(0)
-        for pos, (th, mg, ph) in enumerate(iters):
-            sel = i == pos
-            theta = jnp.where(sel, jnp.int32(th), theta)
-            merge = jnp.where(sel, jnp.bool_(mg), merge)
-            rnd = jnp.where(sel, jnp.int32(ph), rnd)
-        return jax.lax.cond(merge, merge_round, level_end,
-                            labr, labc, fin_t, fin_x, theta, rnd)
+        it = jnp.asarray(iters)[i]
+        theta, rnd = it[0], it[2]
+        return jax.lax.cond(
+            it[1] > 0,
+            lambda s: merge_v(tiles, *s, theta, rnd),
+            lambda s: level_end_v(tiles, *s, theta),
+            carry)
 
-    open_f = jnp.full((TILE_H, TILE_W), float(_BIG), jnp.float32)
-    labr, labc, fin_t, fin_x = jax.lax.fori_loop(
-        0, len(iters), body, (rows, cols, open_f, open_f))
+    n = color.shape[0]
+    open_f = jnp.full((n, TILE_H, TILE_W), float(_BIG), jnp.float32)
+    state = (jnp.broadcast_to(rows, (n, TILE_H, TILE_W)),
+             jnp.broadcast_to(cols, (n, TILE_H, TILE_W)), open_f, open_f)
+    labr, labc, _, fin_x = jax.lax.fori_loop(0, len(iters), body, state)
+    return jax.vmap(_export)(tiles[0], labr, labc, fin_x)
 
+
+def _export(c, labr, labc, fin_x):
+    """Resolve residual label chains of one tile, then export its labels,
+    fin levels and cell-positioned region statistics."""
     # Resolve residual label chains to a fixed point, min-propagating the
     # fin table along the pointer graph as labels jump: fins (and the
     # stats below) recorded at a STALE chain root would otherwise be
@@ -363,12 +338,8 @@ def _solve_subtile(color3, gy, gx, h, w, *, schedule, rounds_per_level,
 
     def jbody(carry):
         labr, labc, finx, _ = carry
-        ohc_b = _onehot_cols(labc)
-        ohc_f = ohc_b.astype(jnp.float32)
-        finx2 = _label_min_masked(labr, ohc_b, finx)
-        nr, nc = (x.astype(jnp.int32) for x in _distribute_many(
-            labr, ohc_f, [labr.astype(jnp.float32),
-                          labc.astype(jnp.float32)]))
+        finx2 = _label_min(labr, labc, finx)
+        nr, nc = _distribute_many(labr, labc, [labr, labc])
         chg = jnp.any((nr != labr) | (nc != labc))
         return nr, nc, finx2, chg
 
@@ -378,53 +349,12 @@ def _solve_subtile(color3, gy, gx, h, w, *, schedule, rounds_per_level,
     # Final per-region statistics, exported CELL-POSITIONED (value lives at
     # the pixel position of its region's root cell): the global solver's
     # init then gathers per-slot stats from O(regions) cells instead of
-    # segment-summing O(pixels) — the pixel-space scatters dominated
-    # _init_table on the remote backend.
+    # segment-summing O(pixels).
     ohc_f = _onehot_cols(labc).astype(jnp.float32)
-    fin_px = _distribute(labr, ohc_f, fin_x)
+    fin_px = _distribute(labr, labc, fin_x)
     ones = jnp.ones((TILE_H, TILE_W), jnp.float32)
-    size_t = _aggregate(labr, ohc_f, ones)
-    csum_t = [_aggregate(labr, ohc_f, ch) for ch in c]
+    size_t, *csum_t = _aggregate_many(labr, ohc_f, [ones] + c)
     return labr * TILE_W + labc, fin_px, size_t, csum_t
-
-
-def _kernel(vol_ref, out_ref, fin_ref, size_ref, c0_ref, c1_ref, c2_ref, *,
-            h, w, band_h, schedule, rounds_per_level, merge_threshold,
-            metric, fin_margin, fin_eager, fin_gated, pair_merge):
-    t_idx = pl.program_id(0)
-    y_idx = pl.program_id(1)
-    x_idx = pl.program_id(2)
-
-    def sub_body(s, _):
-        color3 = vol_ref[0, pl.ds(s * TILE_H, TILE_H)]
-        y0 = y_idx * band_h + s * TILE_H
-        x0 = x_idx * TILE_W
-        rows = jax.lax.broadcasted_iota(jnp.int32, (TILE_H, TILE_W), 0)
-        cols = jax.lax.broadcasted_iota(jnp.int32, (TILE_H, TILE_W), 1)
-        gy = y0 + rows
-        gx = x0 + cols
-        lab, fin, size_t, csum_t = _solve_subtile(
-            color3, gy, gx, h, w, schedule=schedule,
-            rounds_per_level=rounds_per_level,
-            merge_threshold=merge_threshold,
-            metric=metric, fin_margin=fin_margin,
-            fin_eager=fin_eager, fin_gated=fin_gated,
-            pair_merge=pair_merge)
-        # local root -> global voxel id
-        root_y = y0 + (lab >> 7)
-        root_x = x0 + (lab & 127)
-        ds = pl.ds(s * TILE_H, TILE_H)
-        out_ref[0, ds] = t_idx * (h * w) + root_y * w + root_x
-        # Finalize level, NUM_BUCKETS == never finalized (open).
-        fin_ref[0, ds] = \
-            jnp.minimum(fin, float(NUM_BUCKETS)).astype(jnp.int32)
-        size_ref[0, ds] = size_t
-        c0_ref[0, ds] = csum_t[0]
-        c1_ref[0, ds] = csum_t[1]
-        c2_ref[0, ds] = csum_t[2]
-        return 0
-
-    jax.lax.fori_loop(0, band_h // TILE_H, sub_body, 0)
 
 
 @functools.partial(jax.jit,
@@ -458,50 +388,41 @@ def tile_felzenszwalb(vol: jnp.ndarray,
     preserved 8x128 tile seams in smooth areas.
     """
     t, h, w, _ = vol.shape
-    band_h = 64 if h % 64 == 0 or h >= 256 else TILE_H
-    if h % band_h and h % 32 == 0:
-        band_h = 32        # avoid 15% dead padded rows (e.g. h=272 -> 288)
-    elif h % band_h and h % 16 == 0:
-        band_h = 16
-    hp = -(-h // band_h) * band_h
-    wp = -(-w // TILE_W) * TILE_W
+    ny = -(-h // TILE_H)
+    nx = -(-w // TILE_W)
+    hp, wp = ny * TILE_H, nx * TILE_W
     volp = jnp.pad(vol, ((0, 0), (0, hp - h), (0, wp - w), (0, 0)),
                    constant_values=1e6)
+    color = volp.reshape(t, ny, TILE_H, nx, TILE_W, 3) \
+        .transpose(0, 1, 3, 2, 4, 5).reshape(-1, TILE_H, TILE_W, 3)
+    ti, yi, xi = (a.reshape(-1) for a in jnp.meshgrid(
+        jnp.arange(t, dtype=jnp.int32), jnp.arange(ny, dtype=jnp.int32),
+        jnp.arange(nx, dtype=jnp.int32), indexing="ij"))
+    y0 = yi * TILE_H
+    x0 = xi * TILE_W
+    lab, fin, size_t, csum_t = _solve_tiles(
+        color, y0, x0, h, w, schedule=schedule,
+        rounds_per_level=rounds_per_level, merge_threshold=merge_threshold,
+        metric=metric, fin_margin=fin_margin, fin_eager=fin_eager,
+        fin_gated=fin_gated, pair_merge=pair_merge)
+    # local root -> global voxel id
+    root_y = y0[:, None, None] + (lab >> 7)
+    root_x = x0[:, None, None] + (lab & 127)
+    out = ti[:, None, None] * (h * w) + root_y * w + root_x
+    # Finalize level, NUM_BUCKETS == never finalized (open).
+    fin = jnp.minimum(fin, float(NUM_BUCKETS)).astype(jnp.int32)
 
-    ospec = pl.BlockSpec((1, band_h, TILE_W),
-                         lambda ti, yi, xi: (ti, yi, xi),
-                         memory_space=pltpu.VMEM)
-    out, fin, size_c, c0, c1, c2 = pl.pallas_call(
-        functools.partial(_kernel, h=h, w=w, band_h=band_h,
-                          schedule=schedule,
-                          rounds_per_level=rounds_per_level,
-                          merge_threshold=merge_threshold, metric=metric,
-                          fin_margin=fin_margin, fin_eager=fin_eager,
-                          fin_gated=fin_gated, pair_merge=pair_merge),
-        out_shape=(jax.ShapeDtypeStruct((t, hp, wp), jnp.int32),
-                   jax.ShapeDtypeStruct((t, hp, wp), jnp.int32),
-                   jax.ShapeDtypeStruct((t, hp, wp), jnp.float32),
-                   jax.ShapeDtypeStruct((t, hp, wp), jnp.float32),
-                   jax.ShapeDtypeStruct((t, hp, wp), jnp.float32),
-                   jax.ShapeDtypeStruct((t, hp, wp), jnp.float32)),
-        grid=(t, hp // band_h, wp // TILE_W),
-        in_specs=[pl.BlockSpec((1, band_h, TILE_W, 3),
-                               lambda ti, yi, xi: (ti, yi, xi, 0),
-                               memory_space=pltpu.VMEM)],
-        out_specs=(ospec,) * 6,
-        compiler_params=pltpu.CompilerParams(
-            vmem_limit_bytes=100 * 1024 * 1024),
-        interpret=jax.default_backend() != "tpu",
-    )(volp)
-    out = out[:, :h, :w]
-    fin = fin[:, :h, :w]
-    stats = (size_c[:, :h, :w], c0[:, :h, :w], c1[:, :h, :w],
-             c2[:, :h, :w])
+    def untile(x):
+        return x.reshape(t, ny, nx, TILE_H, TILE_W) \
+            .transpose(0, 1, 3, 2, 4).reshape(t, hp, wp)[:, :h, :w]
+
+    out = untile(out)
+    stats = (untile(size_t),) + tuple(untile(x) for x in csum_t)
     # Labels are self-rooted by construction (the root cell's own label is
     # itself after full pointer jumping), but pointer-jump defensively —
     # it exits after one no-change iteration.
-    return (cc.pointer_jump(out.reshape(-1)).reshape(out.shape), fin,
-            stats)
+    return (cc.pointer_jump(out.reshape(-1)).reshape(out.shape),
+            untile(fin), stats)
 
 
 # ---------------------------------------------------------------------------

@@ -1,14 +1,16 @@
-"""Pallas tile pre-segmentation: VMEM-resident label flooding.
+"""Tile pre-segmentation: label flooding inside (8,128) tiles.
 
 Collapses obviously-mergeable pixels (color distance below the force-merge
 weight — merges the reference performs unconditionally,
 pixel_distance.h:487-491) into tile-local regions before the global solver
-runs.  Each (8,128) tile stays resident in VMEM while labels min-flood over
-admissible in-tile N4 edges, so the iterations cost no HBM round trips —
-this is the seed of the full tiled merge-tree solver (ROADMAP item 1).
+runs.  Labels min-flood over admissible in-tile N4 edges for a bounded
+number of masked-shift iterations (one fused loop body over the whole
+volume); edges that cross a tile border are never admissible, so the
+flood stays inside its tile.
 
 Output labels are global voxel indices of tile-local roots and feed the
 solver's `init_label`; cross-tile merging remains the solver's job.
+`tile_preseg_reference` is the independent NumPy oracle.
 """
 
 from __future__ import annotations
@@ -17,8 +19,7 @@ import functools
 
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+import numpy as np
 
 from video_segment_tpu.ops import cc
 
@@ -26,61 +27,13 @@ TILE_H = 8
 TILE_W = 128
 
 
-def _kernel(vol_ref, out_ref, *, iters: int, threshold: float, metric: str,
-            h: int, w: int):
-    t_idx = pl.program_id(0)
-    y_idx = pl.program_id(1)
-    x_idx = pl.program_id(2)
-
-    c = vol_ref[0]                            # (TILE_H, TILE_W, 3)
-
-    def dist(a, b):
-        d = a - b
-        if metric == "l1":
-            return (jnp.abs(d[..., 0]) + jnp.abs(d[..., 1])
-                    + jnp.abs(d[..., 2])) * (1.0 / 3.0)
-        return jnp.sqrt((d[..., 0] ** 2 + d[..., 1] ** 2 + d[..., 2] ** 2)
-                        * (1.0 / 3.0))
-
-    rows = jax.lax.broadcasted_iota(jnp.int32, (TILE_H, TILE_W), 0)
-    cols = jax.lax.broadcasted_iota(jnp.int32, (TILE_H, TILE_W), 1)
-    gy = y_idx * TILE_H + rows
-    gx = x_idx * TILE_W + cols
-
-    # Admissible in-tile N4 edges (down/right) as int32 masks — Mosaic
-    # handles roll/where on i32 vregs where it rejects i1 concatenation.
-    c_dn = pltpu.roll(c, TILE_H - 1, axis=0)
-    c_rt = pltpu.roll(c, TILE_W - 1, axis=1)
-    down = ((dist(c, c_dn) <= threshold)
-            & (rows < TILE_H - 1) & (gy + 1 < h)).astype(jnp.int32)
-    right = ((dist(c, c_rt) <= threshold)
-             & (cols < TILE_W - 1) & (gx + 1 < w)).astype(jnp.int32)
-
-    label0 = rows * TILE_W + cols
-
-    def body(_, lab):
-        lab_d = pltpu.roll(lab, 1, axis=0)    # neighbor above
-        ok_d = pltpu.roll(down, 1, axis=0) * (rows > 0).astype(jnp.int32)
-        lab_u = pltpu.roll(lab, TILE_H - 1, axis=0)  # neighbor below
-        lab_r = pltpu.roll(lab, 1, axis=1)    # neighbor left
-        ok_r = pltpu.roll(right, 1, axis=1) * (cols > 0).astype(jnp.int32)
-        lab_l = pltpu.roll(lab, TILE_W - 1, axis=1)  # neighbor right
-        lab = jnp.where(ok_d > 0, jnp.minimum(lab, lab_d), lab)
-        lab = jnp.where(down > 0, jnp.minimum(lab, lab_u), lab)
-        lab = jnp.where(ok_r > 0, jnp.minimum(lab, lab_r), lab)
-        lab = jnp.where(right > 0, jnp.minimum(lab, lab_l), lab)
-        return lab
-
-    lab = jax.lax.fori_loop(0, iters, body, label0)
-
-    # Tile-local root -> global voxel index.
-    base = t_idx * (h * w)
-    gflat = base + gy * w + gx
-    root_y = lab // TILE_W
-    root_x = lab - root_y * TILE_W
-    root_gy = y_idx * TILE_H + root_y
-    root_gx = x_idx * TILE_W + root_x
-    out_ref[0] = base + root_gy * w + root_gx
+def _dist(a, b, metric):
+    d = a - b
+    if metric == "l1":
+        return (jnp.abs(d[..., 0]) + jnp.abs(d[..., 1])
+                + jnp.abs(d[..., 2])) * (1.0 / 3.0)
+    return jnp.sqrt((d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1]
+                     + d[..., 2] * d[..., 2]) * (1.0 / 3.0))
 
 
 @functools.partial(jax.jit, static_argnames=("threshold", "metric", "iters"))
@@ -90,29 +43,67 @@ def tile_presegment(vol: jnp.ndarray, threshold: float = 0.002,
     tile-local roots).  Pixels whose in-tile N4 color distance is below
     `threshold` share a label; everything else keeps its own voxel id."""
     t, h, w, _ = vol.shape
-    hp = -(-h // TILE_H) * TILE_H
-    wp = -(-w // TILE_W) * TILE_W
-    volp = jnp.pad(vol, ((0, 0), (0, hp - h), (0, wp - w), (0, 0)),
-                   constant_values=1e6)
+    ys = jnp.arange(h)[None, :, None]
+    xs = jnp.arange(w)[None, None, :]
+    # Admissible in-tile N4 edges: `down` links (y,x)-(y+1,x), `right`
+    # links (y,x)-(y,x+1); none crosses a tile border or the frame edge.
+    down = ((_dist(vol, jnp.roll(vol, -1, axis=1), metric) <= threshold)
+            & (ys % TILE_H < TILE_H - 1) & (ys + 1 < h))
+    right = ((_dist(vol, jnp.roll(vol, -1, axis=2), metric) <= threshold)
+             & (xs % TILE_W < TILE_W - 1) & (xs + 1 < w))
+    # An edge seen from its lower/right end (rolls wrap only onto rows and
+    # columns whose edges are masked off).
+    up = jnp.roll(down, 1, axis=1)
+    left = jnp.roll(right, 1, axis=2)
 
-    out = pl.pallas_call(
-        functools.partial(_kernel, iters=iters, threshold=threshold,
-                          metric=metric, h=h, w=w),
-        out_shape=jax.ShapeDtypeStruct((t, hp, wp), jnp.int32),
-        grid=(t, hp // TILE_H, wp // TILE_W),
-        in_specs=[pl.BlockSpec((1, TILE_H, TILE_W, 3),
-                               lambda ti, yi, xi: (ti, yi, xi, 0),
-                               memory_space=pltpu.VMEM)],
-        out_specs=pl.BlockSpec((1, TILE_H, TILE_W),
-                               lambda ti, yi, xi: (ti, yi, xi),
-                               memory_space=pltpu.VMEM),
-        interpret=jax.default_backend() != "tpu",
-    )(volp)
-    out = out[:, :h, :w]
-    # The bounded in-kernel flood can leave label *chains* on regions whose
+    def body(_, lab):
+        lab = jnp.where(up, jnp.minimum(lab, jnp.roll(lab, 1, axis=1)), lab)
+        lab = jnp.where(down, jnp.minimum(lab, jnp.roll(lab, -1, axis=1)),
+                        lab)
+        lab = jnp.where(left, jnp.minimum(lab, jnp.roll(lab, 1, axis=2)),
+                        lab)
+        return jnp.where(right, jnp.minimum(lab, jnp.roll(lab, -1, axis=2)),
+                         lab)
+
+    label0 = jnp.arange(t * h * w, dtype=jnp.int32).reshape(t, h, w)
+    lab = jax.lax.fori_loop(0, iters, body, label0)
+    # The bounded flood can leave label *chains* on regions whose
     # tile-local diameter exceeds `iters` (label[p] -> m, label[m] -> m' < m).
     # Consumers (notably _compact's is_root test) require fully resolved
     # labels, so collapse chains with pointer jumping; they are strictly
     # decreasing, hence acyclic, and almost always short (the while_loop
     # exits as soon as labels stabilize).
-    return cc.pointer_jump(out.reshape(-1)).reshape(out.shape)
+    return cc.pointer_jump(lab.reshape(-1)).reshape(lab.shape)
+
+
+def tile_preseg_reference(vol: np.ndarray, threshold: float,
+                          metric: str = "l2") -> np.ndarray:
+    """NumPy oracle: per-tile N4 connected components under the distance
+    threshold (scipy's graph components), each labelled with the global
+    voxel id of its smallest pixel."""
+    from scipy.sparse import coo_matrix
+    from scipy.sparse.csgraph import connected_components
+
+    vol = np.asarray(vol, np.float32)
+    t, h, w, _ = vol.shape
+    n = t * h * w
+
+    def dist(d):
+        if metric == "l1":
+            return np.abs(d).sum(-1) / np.float32(3.0)
+        return np.sqrt((d * d).sum(-1) / np.float32(3.0))
+
+    thr = np.float32(threshold)
+    down = ((dist(vol[:, 1:] - vol[:, :-1]) <= thr)
+            & (np.arange(h - 1) % TILE_H != TILE_H - 1)[None, :, None])
+    right = ((dist(vol[:, :, 1:] - vol[:, :, :-1]) <= thr)
+             & (np.arange(w - 1) % TILE_W != TILE_W - 1)[None, None, :])
+    ids = np.arange(n).reshape(t, h, w)
+    a = np.concatenate([ids[:, :-1][down], ids[:, :, :-1][right]])
+    b = np.concatenate([ids[:, 1:][down], ids[:, :, 1:][right]])
+    _, comp = connected_components(
+        coo_matrix((np.ones(len(a), np.int8), (a, b)), shape=(n, n)),
+        directed=False)
+    root = np.full(comp.max() + 1, n, np.int64)
+    np.minimum.at(root, comp, np.arange(n))
+    return root[comp].reshape(t, h, w)

@@ -1,7 +1,7 @@
 """Device-mesh sharding of the segmentation compute path.
 
-Multi-chip strategy (the reference is single-process shared-memory,
-SURVEY §2.7; this is the TPU-native scale-out design):
+Multi-device strategy (the reference is single-process shared-memory,
+SURVEY §2.7; this is the scale-out design over a device mesh):
 
 - "data" axis: clip/chunk parallelism — each chip segments different clips
   or different chunk batches (the production serving topology).
@@ -112,19 +112,17 @@ def fused_oversegment(params=None, has_flow: bool = False,
     Returns fn(vols, flows) for vols (clips, T, H, W, 3) [flows
     (clips, T-1, H, W, 2)] -> (clips, T, H, W) int32 labels, equal
     per clip to the single-clip solve (vmap only batches; the math is
-    per-clip — equality-tested on the CPU mesh and on a v5e chip,
-    tests/test_parallel.py).  This is the device-side half of BASELINE
-    config 5's batch topology — host stages (RLE, histograms, proto
-    emission) stay per-clip and overlap via tools/batch_segment
-    --concurrent; multi-chip batch rides the mesh "data" axis
-    (`sharded_oversegment`).
+    per-clip — equality-tested on the CPU mesh, tests/test_parallel.py).
+    This is the device-side half of BASELINE config 5's batch topology —
+    host stages (RLE, histograms, proto emission) stay per-clip and
+    overlap via tools/batch_segment --concurrent; multi-chip batch rides
+    the mesh "data" axis (`sharded_oversegment`).
 
     The batched program's live solve footprint is clips * T * H * W
-    voxels (the TPU worker crashes near ~19M, CLAUDE.md): calls whose
-    batch exceeds `max_solve_voxels` are rejected up front rather than
-    crashing the worker mid-solve.  Drivers should also pad the clip
-    axis to a canonical batch size (the compiled shape includes it, so
-    every distinct batch size is a fresh compile)."""
+    voxels: calls whose batch exceeds `max_solve_voxels` are rejected up
+    front rather than running out of device memory mid-solve.  Callers
+    should also pad the clip axis to a canonical batch size (the compiled
+    shape includes it, so every distinct batch size is a fresh compile)."""
     from video_segment_tpu.core import oversegmentation as ov
 
     p = (params or ov.OversegParams())._replace(edge_table=True)

@@ -10,7 +10,6 @@ from __future__ import annotations
 
 import numpy as np
 
-from video_segment_tpu import proto
 from video_segment_tpu.dataio import fast_proto
 
 
@@ -127,6 +126,7 @@ def build_global_hierarchy(chunk_hierarchies: list) -> list:
     truncated to the minimum across chunks (TruncateHierarchy)."""
     if not chunk_hierarchies:
         return []
+    from video_segment_tpu import proto
     depth = min(len(h) for h in chunk_hierarchies)
     out = []
     for level in range(depth):

@@ -1,6 +1,6 @@
 """Flagship CLI: full streaming segmentation of a video file.
 
-TPU-native equivalent of the reference seg_tree_sample
+JAX equivalent of the reference seg_tree_sample
 (seg_tree_sample/seg_tree.cpp:52-369): decode -> (optical flow) -> dense
 over-segmentation -> hierarchical region segmentation -> .pb / rendered
 video outputs.  Flag names mirror the reference CLI.
@@ -100,9 +100,6 @@ def _apply_overrides(obj, pairs, flag, setter):
         cur = getattr(obj, name)
         if isinstance(cur, bool):
             val = raw.lower() in ("1", "true", "yes")
-        elif cur is None:  # tri-state bool (e.g. extract_tile auto)
-            val = (None if raw.lower() in ("none", "auto")
-                   else raw.lower() in ("1", "true", "yes"))
         elif isinstance(cur, int):
             # int fields accept a comma tuple (per-level counts, e.g.
             # preseg_rounds_per_level=24,2,2).
